@@ -1,0 +1,489 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of FREYJA on one NVIDIA card, end to end.
+
+    python3 chip_smoke.py        # from the root of a checkout; needs one card
+
+Phases:
+
+0. the card: name, count, and ``nvidia-smi``'s name and power limit;
+1. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all at once);
+2. each kernel against its plain PyTorch version at ragged small shapes;
+3. the discovery query at real size, through the port's own entry points:
+   train the join-quality model (T=50, D=5) on the default lake, ingest a
+   100k-column x 256-row scaled lake (profiles + MinHash, P=128), build the
+   LSH index (B=64), and run a batch of 64 queries (k=10) under the
+   ``all``, ``hybrid`` and ``lsh`` candidate stages. Launch counts are set
+   to 0 just before this phase and read just after it; each plan's ids are
+   held against a top-k of the plain scorer over the same candidates;
+4. each kernel at the main path's shapes and inputs: against its plain
+   version, and timed with CUDA events beside its bound;
+5. one profiled batch of each plan: device time by operation and the
+   device's idle share of the batch.
+
+It prints one ``kernels`` JSON line and, last, one ``ok`` JSON line; any
+failure raises and exits non-zero. It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.core import features as FT                      # noqa: E402
+from repro_torch.core.gbdt import GBDTConfig                      # noqa: E402
+from repro_torch.core.lakegen import (LakeSpec, ScaledLakeSpec,   # noqa: E402
+                                      generate_lake, generate_scaled_lake,
+                                      select_scaled_queries)
+from repro_torch.core.predictor import (gbdt_to_torch,            # noqa: E402
+                                        train_quality_model)
+from repro_torch.core.profiles import lake_profiles               # noqa: E402
+from repro_torch.device import hashes_to_torch, to_bits           # noqa: E402
+from repro_torch.exec import stages                               # noqa: E402
+from repro_torch.exec.executor import Executor                    # noqa: E402
+from repro_torch.exec.plan import Planner, PlannerConfig, QueryPlan  # noqa: E402
+from repro_torch.kernels import _build, ops, ref                  # noqa: E402
+from repro_torch.kernels.lsh_probe import lsh_probe_cuda          # noqa: E402
+from repro_torch.kernels.minhash import (make_permutations,       # noqa: E402
+                                         minhash_cuda)
+from repro_torch.kernels.profile_distance import fused_score_cuda  # noqa: E402
+from repro_torch.service import catalog                           # noqa: E402
+from repro_torch.service.lsh import LSHConfig, LSHIndex           # noqa: E402
+
+# the main path's geometry
+N_COLUMNS, N_ROWS, N_PERM, N_BANDS, N_QUERIES, K = 100_000, 256, 128, 64, 64, 10
+# scores: the tolerances of tests/test_kernels.py (float32 GBDT sums)
+RTOL, ATOL = 1e-4, 1e-5
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 ops/s outside the
+# tensor cores, and int32 ops/s taken as half the float32 rate
+HBM_BPS, F32_OPS, I32_OPS = 3.35e12, 67e12, 33.5e12
+TPU_KERNELS = {
+    "fused_score": "src/repro/kernels/profile_distance.py:123",
+    "minhash": "src/repro/kernels/minhash.py:44",
+    "lsh_probe": "src/repro/kernels/lsh_probe.py:58",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync_wall(t0: float) -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for the same work
+# ---------------------------------------------------------------------------
+
+def bound_ms(n_bytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
+    t_bytes = n_bytes / HBM_BPS
+    t_ops = f32_ops / F32_OPS + i32_ops / I32_OPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fused_score_bound(q: int, corpus_rows: int, pairs: int, t: int, d: int):
+    """Query and corpus profiles and the trees read once, one score per pair
+    written once; per pair 21 subs and abs, T·D threshold compares, T adds
+    and one divide (float32), and the 10x10 word compare-or, its sentinel
+    tests and count, the first-word test and T·D index shifts/ors (int32).
+    A shared corpus has N rows and Q·N pairs; a gathered one Q·M of each."""
+    n_bytes = (q + corpus_rows) * (FT.F_NUM + FT.F_WORDS) * 4 + t * d * 8 \
+        + t * (1 << d) * 4 + pairs * 4
+    f32 = pairs * (2 * FT.F_NUM + t * d + t + 1)
+    i32 = pairs * (2 * FT.N_FREQ_WORDS ** 2 + 2 * FT.N_FREQ_WORDS + 2 + 2 * t * d)
+    return bound_ms(n_bytes, f32, i32)
+
+
+def minhash_bound(c: int, r: int, p: int):
+    """Values read once, signatures written once; per (column, row,
+    permutation) a multiply, an add, a sentinel compare, a select and a min."""
+    return bound_ms(c * r * 4 + p * 8 + c * p * 4, 0.0, 5.0 * c * r * p)
+
+
+def lsh_probe_bound(q: int, c: int, b: int):
+    """Keys read once, the hit mask written once; a compare and an or per
+    (query, column, band)."""
+    return bound_ms((q + c) * b * 4 + q * c * 4, 0.0, 2.0 * q * c * b)
+
+
+def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
+    """Mean CUDA-event time of ``fn`` with a cold L2: a 64 MB buffer is
+    rewritten before every timed launch."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush.add_(1)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions at ragged small shapes
+# ---------------------------------------------------------------------------
+
+def _random_gbdt(r, t, d, dev):
+    return (torch.from_numpy(r.integers(0, FT.F_DIST, (t, d)).astype(np.int32)).to(dev),
+            torch.from_numpy(r.normal(size=(t, d)).astype(np.float32)).to(dev),
+            torch.from_numpy(r.normal(size=(t, 1 << d)).astype(np.float32)).to(dev),
+            float(np.float32(r.normal())))
+
+
+def _random_profiles(r, lead, dev):
+    z = torch.from_numpy(r.normal(size=(*lead, FT.F_NUM)).astype(np.float32)).to(dev)
+    w = r.integers(0, 9, (*lead, FT.F_WORDS)).astype(np.uint32)
+    w.reshape(-1, FT.F_WORDS)[::3, :4] = FT.HASH_SENTINEL
+    return z, hashes_to_torch(w, dev)
+
+
+def check_ragged(dev) -> None:
+    r = np.random.default_rng(0)
+    for q, n, t, d in [(1, 1, 1, 1), (5, 300, 50, 5), (13, 1029, 13, 6), (9, 77, 50, 8)]:
+        zq, wq = _random_profiles(r, (q,), dev)
+        g = _random_gbdt(r, t, d, dev)
+        for lead in ((n,), (q, n)):
+            zc, wc = _random_profiles(r, lead, dev)
+            got, want = ops.fused_score(zq, wq, zc, wc, g), ref.fused_score_ref(zq, wq, zc, wc, *g)
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    for c, rows, p in [(1, 1, 1), (7, 700, 64), (33, 256, 128), (9, 1000, 300)]:
+        vals = r.integers(0, 2 ** 32 - 1, (c, rows), dtype=np.uint64).astype(np.uint32)
+        vals[0, rows // 2:] = FT.HASH_SENTINEL
+        v = hashes_to_torch(vals, dev)
+        a, b = (hashes_to_torch(x, dev) for x in make_permutations(p, seed=2))
+        if not torch.equal(ops.minhash(v, a, b), ref.minhash_ref(v, a, b)):
+            raise AssertionError(f"minhash differs from its plain version at {(c, rows, p)}")
+    for q, c, b in [(1, 1, 1), (11, 777, 32), (3, 100, 256)]:
+        qk = hashes_to_torch(r.integers(0, 40, (q, b)).astype(np.uint32), dev)
+        ck = hashes_to_torch(r.integers(0, 40, (c, b)).astype(np.uint32), dev)
+        if not torch.equal(ops.lsh_probe(qk, ck), ref.lsh_probe_ref(qk, ck)):
+            raise AssertionError(f"lsh_probe differs from its plain version at {(q, c, b)}")
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the discovery query at real size
+# ---------------------------------------------------------------------------
+
+def main_path(dev, n_columns=N_COLUMNS, n_queries=N_QUERIES, reps=5):
+    """Train, ingest, index and query through the port's entry points.
+    Returns everything the checks and the kernel phase need."""
+    walls = {}
+    t0 = time.perf_counter()
+    train_lake = generate_lake(LakeSpec(n_domains=16, n_tables=40, seed=0))
+    model = train_quality_model([train_lake], GBDTConfig(), device=dev)
+    walls["train"] = sync_wall(t0)
+    log(f"train: {train_lake.n_columns} columns, T={model.gbdt.n_trees} "
+        f"D={model.gbdt.depth}, R^2 {model.train_r2:.4f}, {walls['train']:.2f} s")
+
+    t0 = time.perf_counter()
+    lake = generate_scaled_lake(ScaledLakeSpec(n_columns=n_columns, seed=5))
+    walls["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    numeric, words, sigs = catalog.profile_and_sign(lake.batch, n_perm=N_PERM, seed=0, device=dev)
+    walls["ingest"] = sync_wall(t0)
+    prof = lake_profiles(numeric, words, lake.batch.n_rows)
+    t0 = time.perf_counter()
+    index = LSHIndex.build(sigs, LSHConfig(n_bands=N_BANDS))
+    walls["lsh_build"] = time.perf_counter() - t0
+    log(f"ingest: {lake.n_columns} columns x {lake.batch.row_budget} rows generated in "
+        f"{walls['generate']:.2f} s, profiled + signed (P={N_PERM}) in "
+        f"{walls['ingest']:.3f} s, band keys (B={N_BANDS}) in {walls['lsh_build']:.3f} s")
+
+    t0 = time.perf_counter()
+    executor = Executor(prof.zscored, prof.words, model.gbdt.astuple(),
+                        table_ids=lake.table, band_keys=index.keys, device=dev)
+    walls["place"] = sync_wall(t0)
+    qids = select_scaled_queries(lake, n_queries)
+    z = prof.zscored.astype(np.float32)
+    batch = (z[qids], prof.words[qids], lake.table[qids].astype(np.int32), qids,
+             index.query_keys(sigs[qids]))
+    planner = Planner(PlannerConfig(k=K))
+    hybrid = planner.plan(n_columns=lake.n_columns, mode="lsh")
+    plans = {"all": planner.plan(n_columns=lake.n_columns, mode="full"),
+             "hybrid": hybrid,
+             "lsh": QueryPlan(candidates="lsh", budget=hybrid.budget, k=K)}
+    results, qps, steady_ms = {}, {}, {}
+    for name, plan in plans.items():
+        t0 = time.perf_counter()
+        results[name] = executor.execute(plan, *batch)
+        first = sync_wall(t0)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            executor.execute(plan, *batch)
+        steady = sync_wall(t0) / reps
+        qps[name] = len(qids) / steady
+        steady_ms[name] = steady * 1e3
+        log(f"plan {name}: budget {plan.budget}, first batch {first * 1e3:.2f} ms, "
+            f"steady {steady * 1e3:.3f} ms/batch = {qps[name]:.1f} queries/s "
+            f"(Q={len(qids)}, k={K})")
+    return dict(model=model, lake=lake, prof=prof, sigs=sigs, index=index, qids=qids,
+                batch=batch, plans=plans, results=results, qps=qps, walls=walls,
+                executor=executor, steady_ms=steady_ms)
+
+
+def _same_ranking(name, s_ref, i_ref, s, i, tol=RTOL) -> None:
+    """Ids equal up to the order of exact score ties; scores close."""
+    s_ref, i_ref = s_ref.cpu().numpy(), i_ref.cpu().numpy()
+    if (np.isfinite(s) != np.isfinite(s_ref)).any():
+        raise AssertionError(f"{name}: finite slots differ from the plain top-k")
+    both = np.isfinite(s)
+    np.testing.assert_allclose(s[both], s_ref[both], rtol=tol, atol=ATOL, err_msg=name)
+    for row in range(s.shape[0]):
+        a, b = set(i_ref[row][i_ref[row] >= 0]), set(i[row][i[row] >= 0])
+        for d in a ^ b:
+            sd = s_ref[row][list(i_ref[row]).index(d)] if d in a else s[row][list(i[row]).index(d)]
+            other = s[row] if d in a else s_ref[row]
+            near = np.min(np.abs(other[np.isfinite(other)] - sd))
+            if near > tol * max(1.0, abs(sd)):
+                raise AssertionError(f"{name}: row {row} id {d} (score {sd}) has no tie")
+
+
+def reference_candidates(kind, zq, qkeys, z, ckeys, excl):
+    """The candidate priorities of ``stages.candidate_priorities``, with the
+    plain probe in place of the kernel."""
+    hit = ref.lsh_probe_ref(qkeys, ckeys)
+    if kind == "lsh":
+        prio = torch.where(hit > 0, 0.0, float("-inf"))
+    else:
+        proxy = (2.0 * zq) @ z.T - (z * z).sum(1)[None]
+        prio = hit.to(torch.float32) * stages._LSH_PRIORITY_BOOST + proxy / (1.0 + proxy.abs())
+    return torch.where(excl, float("-inf"), prio)
+
+
+def check_main_path(run, dev) -> dict:
+    """Hold every plan's ranking against the plain scorer's top-k over the
+    same candidates and masks; report recall@k of the pruned plans."""
+    zq_np, wq_np, tq_np, qids, qk_np = run["batch"]
+    prof, model = run["prof"], run["model"]
+    z = torch.from_numpy(prof.zscored.astype(np.float32)).to(dev)
+    w = hashes_to_torch(prof.words, dev)
+    ck = hashes_to_torch(run["index"].keys, dev)
+    cids = torch.arange(z.shape[0], device=dev)
+    tids = torch.from_numpy(run["lake"].table.astype(np.int64)).to(dev)
+    zq = torch.from_numpy(zq_np).to(dev)
+    wq, qk = hashes_to_torch(wq_np, dev), hashes_to_torch(qk_np, dev)
+    tq = torch.from_numpy(tq_np.astype(np.int64)).to(dev)
+    qid = torch.from_numpy(qids.astype(np.int64)).to(dev)
+    g = gbdt_to_torch(model.gbdt.astuple(), dev)
+    excl = stages.exclusion_mask(cids, tids, tq, qid)
+    checks = {}
+    for name, plan in run["plans"].items():
+        sc, ids, n_scored = run["results"][name]
+        if sc.shape != (len(qids), K) or ids.shape != (len(qids), K):
+            raise AssertionError(f"{name}: result shape {sc.shape}")
+        if np.isnan(sc).any():
+            raise AssertionError(f"{name}: NaN scores")
+        if name == "all":
+            s = torch.where(excl, float("-inf"), ref.fused_score_ref(zq, wq, z, w, *g))
+            s_ref, i_ref = stages.merge_topk(s, cids, K)
+            n_ref = np.full(len(qids), z.shape[0])
+            if not np.isfinite(sc).all():
+                raise AssertionError("all: a full scan left a top-k slot empty")
+        else:
+            prio = reference_candidates(plan.candidates, zq, qk, z, ck, excl)
+            pos, valid = stages.gather_candidates(prio, plan.budget)
+            s = torch.where(valid, ref.fused_score_ref(zq, wq, z[pos], w[pos], *g),
+                            float("-inf"))
+            s_ref, i_ref = stages.merge_topk(s, cids[pos], K)
+            n_ref = valid.sum(1).cpu().numpy()
+        _same_ranking(name, s_ref, i_ref, sc, ids)
+        if not np.array_equal(n_scored, n_ref):
+            raise AssertionError(f"{name}: n_scored differs from the plain candidate count")
+        checks[name] = float(n_scored.mean())
+    full = run["results"]["all"][1]
+    recall = {}
+    for name in ("hybrid", "lsh"):
+        got = run["results"][name][1]
+        recall[name] = float(np.mean([len(set(a[a >= 0]) & set(b[b >= 0])) / max((b >= 0).sum(), 1)
+                                      for a, b in zip(got, full)]))
+    lake = run["lake"]
+    partners = float(np.mean([np.isin(ids[ids >= 0], lake.partners(q)).mean()
+                              for q, ids in zip(qids, full)]))
+    log(f"check: every plan's ids equal the plain scorer's top-{K} over the same "
+        f"candidates (up to exact ties); mean columns scored {checks}")
+    log(f"recall@{K} vs all (information only): {recall}; "
+        f"planted-partner precision@{K} of all: {partners:.4f}")
+    return dict(recall=recall, scored=checks, partner_precision=partners)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: kernels at the main path's shapes and inputs
+# ---------------------------------------------------------------------------
+
+def measure_kernels(run, dev, launches: dict) -> list:
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device=dev)
+    zq_np, wq_np, _, qids, qk_np = run["batch"]
+    prof = run["prof"]
+    g = gbdt_to_torch(run["model"].gbdt.astuple(), dev)
+    t, d = g[0].shape
+    zq = torch.from_numpy(zq_np).to(dev)
+    wq = hashes_to_torch(wq_np, dev)
+    z = torch.from_numpy(prof.zscored.astype(np.float32)).to(dev)
+    w = hashes_to_torch(prof.words, dev)
+    out = []
+
+    def record(name, got, want, exact, k_fn, p_fn, bound, reps, plain_reps):
+        if exact:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: kernel differs from its plain version")
+            err = 0.0
+        else:
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            err = float((got - want).abs().max())
+        ms, plain_ms = time_ms(k_fn, reps, flush), time_ms(p_fn, plain_reps, flush)
+        b_ms, b_by = bound
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+               "replaces": TPU_KERNELS[name], "launches": launches[name],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+        log(f"kernel {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+            f"{b_ms / ms:.1%} of it), plain {plain_ms:.3f} ms, max |err| {err}")
+        return row
+
+    # fused_score, shared corpus: the full scan's (Q, N) geometry
+    wq_b, w_b = to_bits(wq), to_bits(w)
+    f32, th, lv = g[0].contiguous(), g[1].contiguous(), g[2].contiguous()
+    got = ops.fused_score(zq, wq, z, w, g)
+    want = ref.fused_score_ref(zq, wq, z, w, *g)
+    out.append(record("fused_score", got, want, False,
+                      lambda: fused_score_cuda(zq, wq_b, z, w_b, f32, th, lv, g[3]),
+                      lambda: ref.fused_score_ref(zq, wq, z, w, *g),
+                      fused_score_bound(zq.shape[0], z.shape[0], zq.shape[0] * z.shape[0], t, d), 20, 3))
+    # fused_score, gathered: the hybrid plan's (Q, M, F) candidates
+    hybrid = run["plans"]["hybrid"]
+    ck = hashes_to_torch(run["index"].keys, dev)
+    qk = hashes_to_torch(qk_np, dev)
+    cids = torch.arange(z.shape[0], device=dev)
+    tids = torch.from_numpy(run["lake"].table.astype(np.int64)).to(dev)
+    tq = torch.from_numpy(run["batch"][2].astype(np.int64)).to(dev)
+    qid = torch.from_numpy(qids.astype(np.int64)).to(dev)
+    prio = reference_candidates("hybrid", zq, qk, z, ck,
+                                stages.exclusion_mask(cids, tids, tq, qid))
+    pos, _ = stages.gather_candidates(prio, hybrid.budget)
+    zg, wg = z[pos].contiguous(), w[pos].contiguous()
+    wg_b = to_bits(wg)
+    got = ops.fused_score(zq, wq, zg, wg, g)
+    torch.testing.assert_close(got, ref.fused_score_ref(zq, wq, zg, wg, *g),
+                               rtol=RTOL, atol=ATOL)
+    g_ms = time_ms(lambda: fused_score_cuda(zq, wq_b, zg, wg_b, f32, th, lv, g[3]), 20, flush)
+    gb_ms, gb_by = fused_score_bound(zq.shape[0], pos.numel(), pos.numel(), t, d)
+    log(f"kernel fused_score (gathered {tuple(zg.shape)}): {g_ms:.4f} ms "
+        f"(bound {gb_ms:.4f} ms by {gb_by})")
+
+    # minhash at ingest's geometry: one chunk of profile_and_sign's column walk
+    # (the scaled lake's 256 rows and 100k columns need no padding)
+    v = hashes_to_torch(run["lake"].batch.values32[:catalog.CHUNK_COLUMNS], dev)
+    a, b = (hashes_to_torch(x, dev) for x in make_permutations(N_PERM, 0))
+    v_b, a_b, b_b = to_bits(v), to_bits(a), to_bits(b)
+    out.append(record("minhash", ops.minhash(v, a, b), ref.minhash_ref(v, a, b), True,
+                      lambda: minhash_cuda(v_b, a_b, b_b),
+                      lambda: ref.minhash_ref(v, a, b),
+                      minhash_bound(*v.shape, N_PERM), 10, 2))
+
+    # lsh_probe at the pruned plans' geometry: (Q, B) against (C, B)
+    qk_b, ck_b = to_bits(qk), to_bits(ck)
+    out.append(record("lsh_probe", ops.lsh_probe(qk, ck), ref.lsh_probe_ref(qk, ck), True,
+                      lambda: lsh_probe_cuda(qk_b, ck_b),
+                      lambda: ref.lsh_probe_ref(qk, ck),
+                      lsh_probe_bound(qk.shape[0], ck.shape[0], qk.shape[1]), 20, 3))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: where a batch's device time goes
+# ---------------------------------------------------------------------------
+
+def trace_plans(run) -> None:
+    """Device time by operation over one steady batch of each plan
+    (torch.profiler), beside the batch's unprofiled steady wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for name, plan in run["plans"].items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+            run["executor"].execute(plan, *run["batch"])
+            torch.cuda.synchronize()
+        # device-side events only: a host op's own row repeats its kernels' time
+        rows = sorted(((e.key[:48], e.self_device_time_total / 1e3, e.count)
+                       for e in trace.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                      key=lambda row: -row[1])
+        busy = sum(ms for _, ms, _ in rows)
+        steady = run["steady_ms"][name]
+        log(f"trace {name}: device busy {busy:.3f} ms of a {steady:.3f} ms steady batch "
+            f"(idle share {max(0.0, 1 - busy / steady):.1%}); by self device time: "
+            + "; ".join(f"{key} {ms:.3f} ms x{n}" for key, ms, n in rows[:8]))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available; this script "
+                         "runs the port on an NVIDIA card")
+    dev = torch.device("cuda")
+    t_all = time.perf_counter()
+    # phase 0: the card
+    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"phase 0: device {name} x{count}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}; card {smi}")
+
+    # phase 1: build
+    t0 = time.perf_counter()
+    paths = _build.build()
+    for kernel in _build.KERNELS:
+        _build.library(kernel)
+    log(f"phase 1: built {len(paths)} kernels in {time.perf_counter() - t0:.2f} s: "
+        f"{sorted(p.name for p in paths.values())}")
+
+    # phase 2: ragged shapes
+    t0 = time.perf_counter()
+    check_ragged(dev)
+    log(f"phase 2: kernels equal their plain versions at ragged shapes "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # phase 3: the main path, counted
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = main_path(dev)
+    launches = dict(_build.launch_counts)
+    log(f"phase 3: main path in {sync_wall(t0):.2f} s; launches {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    t0 = time.perf_counter()
+    check_main_path(run, dev)
+    log(f"phase 3 check: {time.perf_counter() - t0:.2f} s")
+
+    # phase 4: kernels at the main path's shapes
+    t0 = time.perf_counter()
+    kernels = measure_kernels(run, dev, launches)
+    log(f"phase 4: {time.perf_counter() - t0:.2f} s")
+
+    # phase 5: device time by operation, per plan
+    t0 = time.perf_counter()
+    trace_plans(run)
+    log(f"phase 5: {time.perf_counter() - t0:.2f} s; total {time.perf_counter() - t_all:.2f} s")
+    log(f"card: {smi}")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": count}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,103 @@
+"""Composable pipeline stages: candidate generation, scoring, top-k merge.
+
+The port of ``repro.exec.stages`` for local plans. Every discovery query is
+the same three-stage pipeline over the resident corpus:
+
+1. **candidates** — ``all`` (every live column), ``lsh`` (banded-MinHash
+   bucket probe, ``kernels/csrc/lsh_probe.cu``) or ``hybrid`` (LSH hits
+   ranked first, the remaining budget filled by profile-space proximity);
+2. **score** — distance features + GBDT over the surviving columns, in the
+   fused kernel ``kernels/csrc/fused_score.cu``;
+3. **merge** — top-k.
+
+Top-k order. ``jax.lax.top_k`` puts the lower index first among equal
+values, and the ``lsh`` stage gives every hit the same priority, so tie
+order decides which columns fill the budget. ``torch.topk`` promises no
+tie order, so every top-k here is a stable descending sort, sliced.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+CANDIDATE_KINDS = ("all", "lsh", "hybrid")
+
+# LSH hits outrank every profile-proximity score: the proxy is squashed
+# into (-1, 1), so any offset > 2 keeps the two bands disjoint.
+_LSH_PRIORITY_BOOST = 4.0
+
+# The hybrid proxy is a float32 matrix product. TF32 would keep ~3 decimal
+# digits and could change which columns fill the candidate budget, so the
+# port keeps float32 products in full float32 on the card.
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def topk_stable(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries per row, ties broken by
+    the lower index — the order of ``jax.lax.top_k``."""
+    order = torch.sort(x, dim=1, descending=True, stable=True)
+    return order.values[:, :k], order.indices[:, :k]
+
+
+def live_count(cids: torch.Tensor) -> torch.Tensor:
+    """Number of live (non-padding) columns on the corpus axis."""
+    return (cids >= 0).sum()
+
+
+def exclusion_mask(cids, tids, tq, qid):
+    """(Q, C) bool — True where a column must NOT be returned for a query:
+    padding columns (cid < 0), the query itself (qid = -1 matches nothing)
+    and same-table columns (tq = -1 disables the table mask for that row)."""
+    pad = (cids < 0)[None, :]
+    self_hit = cids[None, :] == qid[:, None]
+    same_table = (tq[:, None] >= 0) & (tids[None, :] == tq[:, None])
+    return pad | self_hit | same_table
+
+
+def candidate_priorities(kind: str, zq, qkeys, z, ckeys, cids, tids, tq, qid):
+    """(Q, C) float32 priorities; -inf means "never a candidate".
+
+    ``lsh`` — bucket hits only; ``hybrid`` — hits first, then nearest
+    columns in z-scored profile space via one matrix product (squared L2 up
+    to a per-query constant).
+    """
+    excl = exclusion_mask(cids, tids, tq, qid)
+    hit = ops.lsh_probe(qkeys, ckeys)
+    if kind == "lsh":
+        prio = torch.where(hit > 0, 0.0, float("-inf"))
+    elif kind == "hybrid":
+        # -||zq - z||² up to a per-query constant: 2·zq@zᵀ - ||z||²
+        proxy = (2.0 * zq) @ z.T - (z * z).sum(1)[None]
+        proxy = proxy / (1.0 + torch.abs(proxy))            # squash to (-1, 1)
+        prio = hit.to(torch.float32) * _LSH_PRIORITY_BOOST + proxy
+    else:
+        raise ValueError(f"unknown candidate kind {kind!r}; want lsh or hybrid")
+    return torch.where(excl, float("-inf"), prio)
+
+
+def gather_candidates(prio, budget: int):
+    """Top-``budget`` columns by priority -> (positions (Q, M), valid (Q, M));
+    invalid slots (priority -inf) are budget the scorer must ignore."""
+    pval, pos = topk_stable(prio, budget)
+    return pos, torch.isfinite(pval)
+
+
+def score_columns(zq, wq, zc, wc, gbdt_tuple):
+    """GBDT join-quality scores. zc/wc (C, F) -> (Q, C); (Q, M, F) gathered
+    candidates score per-query sets. The fused kernel on the card (where
+    the JAX executor scores with a jnp mirror of its Pallas kernel)."""
+    return ops.fused_score(zq, wq, zc, wc, gbdt_tuple)
+
+
+def merge_topk(scores, cids, k: int):
+    """Local top-k -> (scores (Q, k'), global ids (Q, k')), k' = min(k, C).
+
+    ``cids`` is (C,) for a shared corpus axis or (Q, C) for per-query
+    gathered candidate sets. Non-finite slots come back with id -1."""
+    kl = min(k, scores.shape[1])
+    sc, pos = topk_stable(scores, kl)
+    if cids.dim() == 1:
+        cids = cids[None].expand(scores.shape[0], -1)
+    ids = torch.gather(cids, 1, pos)
+    return sc, torch.where(torch.isfinite(sc), ids, -1)

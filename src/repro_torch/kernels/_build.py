@@ -1,0 +1,126 @@
+"""Build, load and count the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` into its own shared library, loaded with ``ctypes``. The build
+happens on first use, never at import: one ``nvcc`` per source, all started
+together, into ``build/repro_torch/`` at the root of the checkout (listed in
+``.gitignore``). A library's file name carries a hash of its source and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
+
+There is no fast-math and no TF32 anywhere: the scorer's features feed
+``>=`` threshold compares, where one ulp flips a leaf.
+
+``launch_counts`` holds one plain integer per kernel; a wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that its
+main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+KERNELS = ("fused_score", "minhash", "lsh_probe")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C signature of each kernel's entry points: name -> (argtypes, restype)
+_SIGNATURES = {
+    "fused_score": {
+        "freyja_fused_score": ([_P] * 7 + [_F, _P, _I, _I, _LL, _I, _I, _P], _I),
+        "freyja_fused_score_smem": ([_I, _I], _LL),
+    },
+    "minhash": {
+        "freyja_minhash": ([_P] * 4 + [_I, _I, _I, _P], _I),
+    },
+    "lsh_probe": {
+        "freyja_lsh_probe": ([_P] * 3 + [_I, _I, _I, _P], _I),
+        "freyja_lsh_probe_max_bands": ([], _I),
+    },
+}
+
+launch_counts = {name: 0 for name in KERNELS}
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        launch_counts[name] = 0
+
+
+def count_launch(name: str) -> None:
+    launch_counts[name] += 1
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        path = Path(CUDA_HOME) / "bin" / "nvcc"
+        if path.exists():
+            return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build() -> dict[str, Path]:
+    """Compile every missing kernel library, one ``nvcc`` per source, all
+    running at once. Returns name -> library path."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in KERNELS}
+    procs = {}
+    nvcc = None
+    for name, path in paths.items():
+        if path.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT))
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{out.decode(errors='replace')}")
+            continue
+        os.replace(tmp, paths[name])
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (building all kernels first if
+    this one is missing), with every entry point's signature declared."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = build()[name]
+            lib = ctypes.CDLL(str(path))
+            for fn, (argtypes, restype) in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[name] = lib
+        return lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

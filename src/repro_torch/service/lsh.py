@@ -1,0 +1,99 @@
+"""Banded-MinHash LSH candidate generation over catalog signatures.
+
+Classic banding: split each (P,)-permutation MinHash signature into B bands
+of r = P/B rows, hash every band to a 32-bit bucket key, and call a column a
+*candidate* for a query iff they share a bucket in at least one band. Two
+columns with set Jaccard J collide with probability ``1 - (1 - J^r)^B``.
+
+The keys are numpy FNV-1a, byte-identical with ``repro.service.lsh``
+(including the clearance of the probe's padding sentinels and the fold of
+the ``P % B`` trailing rows into the last band). The probe is the device
+kernel ``kernels/csrc/lsh_probe.cu``: (Q, B) query keys against the
+resident (C, B) catalog keys in one pass.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+
+import numpy as np
+import torch
+
+from repro_torch.device import hashes_to_torch, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels.lsh_probe import PAD_CORPUS
+
+_FNV_OFFSET = np.uint64(0xCBF29CE484222325)
+_FNV_PRIME = np.uint64(0x100000001B3)
+
+# geometries already warned about (``(n_perm, n_bands)`` pairs where the
+# signature width does not divide evenly into bands)
+_REMAINDER_WARNED: set[tuple[int, int]] = set()
+
+
+@dataclasses.dataclass(frozen=True)
+class LSHConfig:
+    n_bands: int = 64          # rows per band = n_perm // n_bands
+
+    def rows_per_band(self, n_perm: int) -> int:
+        r = n_perm // self.n_bands
+        if r < 1:
+            raise ValueError(
+                f"n_bands={self.n_bands} exceeds signature width {n_perm}")
+        return r
+
+
+def _fold32(h: np.ndarray) -> np.ndarray:
+    k = ((h >> np.uint64(32)) ^ (h & np.uint64(0xFFFFFFFF))).astype(np.uint32)
+    return np.where(k >= PAD_CORPUS, k - np.uint32(7), k)
+
+
+def band_keys(signatures: np.ndarray, n_bands: int) -> np.ndarray:
+    """(C, P) uint32 MinHash signatures -> (C, B) uint32 bucket keys.
+
+    FNV-1a over the r rows of each band, folded to 32 bits; keys are kept
+    clear of the probe-kernel padding sentinels. When ``P % B != 0`` the
+    ``P - B*r`` trailing permutation rows are folded into the *last* band
+    (with a one-time warning) rather than silently discarded.
+    """
+    c, p = signatures.shape
+    r = LSHConfig(n_bands=n_bands).rows_per_band(p)
+    used = n_bands * r
+    s = signatures[:, :used].reshape(c, n_bands, r).astype(np.uint64)
+    h = np.full((c, n_bands), _FNV_OFFSET, np.uint64)
+    for i in range(r):
+        h = (h ^ s[:, :, i]) * _FNV_PRIME
+    if p != used:
+        key = (p, n_bands)
+        if key not in _REMAINDER_WARNED:
+            _REMAINDER_WARNED.add(key)
+            warnings.warn(
+                f"band_keys: signature width {p} does not divide into "
+                f"{n_bands} bands of {r} rows; folding the {p - used} "
+                f"trailing permutation rows into the last band",
+                RuntimeWarning, stacklevel=2)
+        tail = signatures[:, used:].astype(np.uint64)    # (C, p-used)
+        for i in range(p - used):
+            h[:, -1] = (h[:, -1] ^ tail[:, i]) * _FNV_PRIME
+    return _fold32(h)
+
+
+@dataclasses.dataclass
+class LSHIndex:
+    """Bucket keys for the resident catalog + the device probe."""
+
+    config: LSHConfig
+    keys: np.ndarray               # (C, B) uint32 band keys
+
+    @classmethod
+    def build(cls, signatures: np.ndarray, config: LSHConfig = LSHConfig()):
+        return cls(config=config, keys=band_keys(signatures, config.n_bands))
+
+    def query_keys(self, signatures_q: np.ndarray) -> np.ndarray:
+        return band_keys(signatures_q, self.config.n_bands)
+
+    def hit_mask(self, qkeys: np.ndarray, *, device=None) -> torch.Tensor:
+        """(Q, B) query keys -> (Q, C) int32 candidate mask on ``device``."""
+        dev = resolve_device(device)
+        return ops.lsh_probe(hashes_to_torch(qkeys, dev),
+                             hashes_to_torch(self.keys, dev))

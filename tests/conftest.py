@@ -16,6 +16,12 @@ from _fixtures import FakeClock, fake_clock, seeded_rng  # noqa: F401
 from repro.core import LakeSpec, generate_lake, profile_lake
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: runs a CUDA kernel; skips (inside a fixture) on a "
+                   "host without a CUDA card")
+
+
 @pytest.fixture(scope="session")
 def small_lake():
     # row budget large enough that observed cardinalities track vocabulary

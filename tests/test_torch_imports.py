@@ -1,0 +1,82 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points refuse to run on the host unless the caller asks for it."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.discovery import DiscoveryIndex, rank
+from repro_torch.core.gbdt import GBDTParams
+from repro_torch.core.lakegen import LakeSpec, generate_lake
+from repro_torch.core.predictor import JoinQualityModel, train_quality_model
+from repro_torch.core.profiles import profile_lake
+from repro_torch.exec.executor import Executor
+from repro_torch.kernels import _build
+from repro_torch.service.catalog import profile_and_sign
+from repro_torch.service.lsh import LSHConfig, LSHIndex
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["repro"] = None        # ... and of the JAX package
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+from repro_torch.kernels import _build
+assert not _build._libs, "a kernel was built at import"
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20        # every module was imported
+
+
+def test_kernel_sources_are_keyed_by_content():
+    paths = {name: _build.library_path(name) for name in _build.KERNELS}
+    assert len(set(paths.values())) == len(_build.KERNELS)
+    for name, path in paths.items():
+        assert path.parent == _build.BUILD_DIR and name in path.name
+        assert path == _build.library_path(name)      # stable for one source
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    lake = generate_lake(LakeSpec(n_domains=3, n_tables=3, row_budget=64, seed=1))
+    prof = profile_lake(lake.batch, device="cpu")
+    r = np.random.default_rng(0)
+    gbdt = GBDTParams(feats=r.integers(0, 23, (2, 2)).astype(np.int32),
+                      thrs=r.normal(size=(2, 2)).astype(np.float32),
+                      leaves=r.normal(size=(2, 4)).astype(np.float32), base=0.0)
+    return lake, prof, JoinQualityModel(gbdt=gbdt)
+
+
+_ENTRY_POINTS = {
+    "profile_lake": lambda lake, prof, model: profile_lake(lake.batch),
+    "profile_and_sign": lambda lake, prof, model: profile_and_sign(lake.batch, 16, 0),
+    "train_quality_model": lambda lake, prof, model: train_quality_model([lake]),
+    "rank": lambda lake, prof, model: rank(DiscoveryIndex(prof, model), [0]),
+    "Executor": lambda lake, prof, model: Executor(prof.zscored, prof.words,
+                                                   model.gbdt.astuple()),
+    "LSHIndex.hit_mask": lambda lake, prof, model: LSHIndex.build(
+        np.zeros((4, 16), np.uint32), LSHConfig(n_bands=4)).hit_mask(
+            np.zeros((1, 4), np.uint32)),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_entry_point_without_device_raises_on_a_host_without_a_card(
+        monkeypatch, tiny, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _ENTRY_POINTS[entry](*tiny)

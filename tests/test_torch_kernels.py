@@ -1,0 +1,186 @@
+"""The port's kernels: plain versions against the JAX package's Pallas kernels
+(interpret mode) and oracles on the CPU, and the CUDA kernels against their
+plain versions on a card (``gpu`` marker; skipped on a host without one)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.exec import stages as jstages
+from repro.kernels.lsh_probe import lsh_probe_pallas
+from repro.kernels.minhash import make_permutations as jax_make_permutations
+from repro.kernels.minhash import minhash_pallas
+from repro.kernels.profile_distance import fused_score_pallas
+from repro_torch.core import features as FT
+from repro_torch.device import hashes_to_numpy, hashes_to_torch
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.lsh_probe import PAD_CORPUS, PAD_QUERY
+from repro_torch.kernels.minhash import make_permutations
+
+# scores: the tolerances of tests/test_kernels.py (float32 GBDT sums)
+RTOL, ATOL = 1e-4, 1e-5
+
+
+def _gbdt(t, d, seed):
+    r = np.random.default_rng(seed)
+    return (r.integers(0, FT.F_DIST, (t, d)).astype(np.int32),
+            r.normal(size=(t, d)).astype(np.float32),
+            r.normal(size=(t, 2 ** d)).astype(np.float32),
+            float(np.float32(r.normal())))
+
+
+def _profiles(r, lead, n_words=9):
+    z = r.normal(size=(*lead, FT.F_NUM)).astype(np.float32)
+    w = r.integers(0, n_words, (*lead, FT.F_WORDS)).astype(np.uint32)
+    w.reshape(-1, FT.F_WORDS)[::3, :4] = FT.HASH_SENTINEL   # sentinel slots
+    return z, w
+
+
+def _torch_gbdt(g, device="cpu"):
+    feats, thrs, leaves, base = g
+    return (torch.from_numpy(feats).to(device), torch.from_numpy(thrs).to(device),
+            torch.from_numpy(leaves).to(device), base)
+
+
+def _torch_inputs(zq, wq, zc, wc, device="cpu"):
+    return (torch.from_numpy(zq).to(device), hashes_to_torch(wq, device),
+            torch.from_numpy(zc).to(device), hashes_to_torch(wc, device))
+
+
+@pytest.mark.parametrize("q,n,t,d", [(2, 64, 10, 4), (5, 300, 50, 5),
+                                     (3, 17, 13, 6)])
+def test_fused_score_shared_matches_pallas(q, n, t, d):
+    r = np.random.default_rng(q * 1000 + n)
+    zq, wq = _profiles(r, (q,))
+    zc, wc = _profiles(r, (n,))
+    g = _gbdt(t, d, seed=t)
+    want = fused_score_pallas(*map(jnp.asarray, (zq, wq, zc, wc)),
+                              *map(jnp.asarray, g[:3]), base=g[3],
+                              block_q=4, block_n=128, interpret=True)
+    got = ref.fused_score_ref(*_torch_inputs(zq, wq, zc, wc), *_torch_gbdt(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    # the CPU path of the public entry point is the plain version
+    via_ops = ops.fused_score(*_torch_inputs(zq, wq, zc, wc), _torch_gbdt(g))
+    assert torch.equal(via_ops, got)
+
+
+@pytest.mark.parametrize("q,m,t,d", [(3, 40, 50, 5), (6, 9, 10, 4)])
+def test_fused_score_gathered_matches_score_columns(q, m, t, d):
+    r = np.random.default_rng(q * 100 + m)
+    zq, wq = _profiles(r, (q,))
+    zc, wc = _profiles(r, (q, m))
+    g = _gbdt(t, d, seed=d)
+    want = jstages.score_columns(*map(jnp.asarray, (zq, wq, zc, wc)),
+                                 tuple(map(jnp.asarray, g)))
+    got = ops.fused_score(*_torch_inputs(zq, wq, zc, wc), _torch_gbdt(g))
+    assert got.shape == (q, m)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("p,seed", [(16, 0), (128, 3), (7, 11)])
+def test_make_permutations_bit_exact(p, seed):
+    ja, jb = jax_make_permutations(p, seed)
+    a, b = make_permutations(p, seed)
+    assert a.dtype == np.uint32 and b.dtype == np.uint32
+    assert np.array_equal(a, np.asarray(ja)) and np.array_equal(b, np.asarray(jb))
+
+
+@pytest.mark.parametrize("c,r,p", [(1, 10, 16), (7, 700, 64), (16, 1024, 128)])
+def test_minhash_matches_pallas(c, r, p):
+    rng = np.random.default_rng(c + r + p)
+    # full-width values so the products wrap around 2^32
+    vals = rng.integers(0, 2 ** 32 - 1, (c, r), dtype=np.uint64).astype(np.uint32)
+    vals[0, r // 2:] = FT.HASH_SENTINEL
+    a, b = make_permutations(p, seed=3)
+    want = minhash_pallas(jnp.asarray(vals), jnp.asarray(a), jnp.asarray(b),
+                          block_c=4, block_r=128, interpret=True)
+    got = ops.minhash(hashes_to_torch(vals, "cpu"), hashes_to_torch(a, "cpu"),
+                      hashes_to_torch(b, "cpu"))
+    assert np.array_equal(hashes_to_numpy(got), np.asarray(want))
+
+
+def test_minhash_row_steps_do_not_change_signatures(monkeypatch):
+    """The plain version's bounded row steps give the one-step result."""
+    rng = np.random.default_rng(5)
+    vals = rng.integers(0, 2 ** 32 - 1, (5, 300), dtype=np.uint64).astype(np.uint32)
+    a, b = (hashes_to_torch(x, "cpu") for x in make_permutations(32, seed=1))
+    v = hashes_to_torch(vals, "cpu")
+    whole = ref.minhash_ref(v, a, b)
+    monkeypatch.setattr(ref, "_MINHASH_ELEMS", 5 * 32 * 7)   # 7 rows a step
+    assert torch.equal(ref.minhash_ref(v, a, b), whole)
+
+
+@pytest.mark.parametrize("q,c,b", [(1, 1, 4), (3, 100, 16), (8, 512, 64),
+                                   (11, 777, 32)])
+def test_lsh_probe_matches_pallas(q, c, b):
+    rng = np.random.default_rng(q * c + b)
+    qk = rng.integers(0, 50, (q, b)).astype(np.uint32)     # small key space
+    ck = rng.integers(0, 50, (c, b)).astype(np.uint32)     # -> plenty of hits
+    ck[-1, 0] = qk[0, 0]                                   # guaranteed hit
+    qk[-1, -1] = PAD_QUERY
+    ck[0, -1] = PAD_CORPUS
+    want = lsh_probe_pallas(jnp.asarray(qk), jnp.asarray(ck), block_q=4,
+                            block_c=128, interpret=True)
+    got = ops.lsh_probe(hashes_to_torch(qk, "cpu"), hashes_to_torch(ck, "cpu"))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert got.any()
+
+
+def test_ops_refuse_a_device_without_kernel_or_plain_version():
+    t = torch.zeros((2, FT.F_WORDS), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        ops.lsh_probe(t, t)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels vs their plain versions (on a card only)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,t,d", [(1, 1, 1, 1), (5, 300, 50, 5),
+                                     (13, 1029, 13, 6), (64, 5000, 50, 5)])
+def test_fused_score_kernel_matches_plain(cuda, q, n, t, d):
+    r = np.random.default_rng(n)
+    zq, wq = _profiles(r, (q,))
+    g = _torch_gbdt(_gbdt(t, d, seed=n), cuda)
+    for lead in ((n,), (q, n)):                   # shared, then gathered
+        zc, wc = _profiles(r, lead)
+        args = _torch_inputs(zq, wq, zc, wc, cuda)
+        got = ops.fused_score(*args, g)
+        want = ref.fused_score_ref(*args, *g)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,r,p", [(1, 1, 1), (7, 700, 64), (33, 256, 128),
+                                   (9, 1000, 300)])
+def test_minhash_kernel_matches_plain(cuda, c, r, p):
+    rng = np.random.default_rng(c * r)
+    vals = rng.integers(0, 2 ** 32 - 1, (c, r), dtype=np.uint64).astype(np.uint32)
+    vals[0, r // 2:] = FT.HASH_SENTINEL
+    v = hashes_to_torch(vals, cuda)
+    a, b = (hashes_to_torch(x, cuda) for x in make_permutations(p, seed=2))
+    got = ops.minhash(v, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.minhash_ref(v, a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,c,b", [(1, 1, 1), (11, 777, 32), (64, 5000, 64)])
+def test_lsh_probe_kernel_matches_plain(cuda, q, c, b):
+    rng = np.random.default_rng(q + c)
+    qk = hashes_to_torch(rng.integers(0, 40, (q, b)).astype(np.uint32), cuda)
+    ck = hashes_to_torch(rng.integers(0, 40, (c, b)).astype(np.uint32), cuda)
+    got = ops.lsh_probe(qk, ck)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.lsh_probe_ref(qk, ck))

@@ -9,13 +9,20 @@ Phases:
 1. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once);
 2. each kernel against its plain PyTorch version at ragged small shapes;
-3. the discovery query at real size, through the port's own entry points:
-   train the join-quality model (T=50, D=5) on the default lake, ingest a
-   100k-column x 256-row scaled lake (profiles + MinHash, P=128), build the
-   LSH index (B=64), and run a batch of 64 queries (k=10) under the
-   ``all``, ``hybrid`` and ``lsh`` candidate stages. Launch counts are set
-   to 0 just before this phase and read just after it; each plan's ids are
-   held against a top-k of the plain scorer over the same candidates;
+3. two paths at real size, through the port's own entry points, each with
+   the launch counts set to 0 just before it and read just after it:
+   a. the discovery query: train the join-quality model (T=50, D=5) on the
+      default lake, ingest a 100k-column x 256-row scaled lake (profiles +
+      MinHash, P=128), build the LSH index (B=64 fine bands, S=16 coarse
+      digest), and run a batch of 64 queries (k=10) under the ``all``,
+      ``hybrid`` and ``lsh`` candidate stages over float32 profiles;
+   b. the large-lake scale path: int8 and fp16 executors over the same
+      profiles, the ``tiered`` plan (coarse digest scan, survivor gather,
+      gathered fine probe, quantized scorer, exact float32 re-rank) and the
+      quantized ``all`` scans; the plan ``mode="auto"`` picks is logged.
+   Each plan's ids are held against a plain pipeline over the same
+   candidates (plain probes and plain scorers); the quantized top-10 must
+   overlap the float32 one by at least 0.99;
 4. each kernel at the main path's shapes and inputs: against its plain
    version, and timed with CUDA events beside its bound;
 5. one profiled batch of each plan: device time by operation and the
@@ -45,20 +52,24 @@ from repro_torch.core.lakegen import (LakeSpec, ScaledLakeSpec,   # noqa: E402
 from repro_torch.core.predictor import (gbdt_to_torch,            # noqa: E402
                                         train_quality_model)
 from repro_torch.core.profiles import lake_profiles               # noqa: E402
-from repro_torch.device import hashes_to_torch, to_bits           # noqa: E402
+from repro_torch.device import from_bits, hashes_to_torch, to_bits  # noqa: E402
 from repro_torch.exec import stages                               # noqa: E402
 from repro_torch.exec.executor import Executor                    # noqa: E402
 from repro_torch.exec.plan import Planner, PlannerConfig, QueryPlan  # noqa: E402
 from repro_torch.kernels import _build, ops, ref                  # noqa: E402
-from repro_torch.kernels.lsh_probe import lsh_probe_cuda          # noqa: E402
+from repro_torch.kernels.lsh_probe import (PAD_CORPUS, PAD_QUERY,  # noqa: E402
+                                           lsh_probe_cuda, lsh_probe_gathered_cuda)
 from repro_torch.kernels.minhash import (make_permutations,       # noqa: E402
                                          minhash_cuda)
-from repro_torch.kernels.profile_distance import fused_score_cuda  # noqa: E402
+from repro_torch.kernels.profile_distance import (                # noqa: E402
+    fused_score_cuda, fused_score_q_cuda, quantize_profiles)
 from repro_torch.service import catalog                           # noqa: E402
 from repro_torch.service.lsh import LSHConfig, LSHIndex           # noqa: E402
 
 # the main path's geometry
 N_COLUMNS, N_ROWS, N_PERM, N_BANDS, N_QUERIES, K = 100_000, 256, 128, 64, 64, 10
+N_COARSE = 16           # coarse super-band digest width S
+OVERLAP_GATE = 0.99     # quantized vs float32 top-k overlap (tests/test_scale.py)
 # scores: the tolerances of tests/test_kernels.py (float32 GBDT sums)
 RTOL, ATOL = 1e-4, 1e-5
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 ops/s outside the
@@ -68,7 +79,13 @@ TPU_KERNELS = {
     "fused_score": "src/repro/kernels/profile_distance.py:123",
     "minhash": "src/repro/kernels/minhash.py:44",
     "lsh_probe": "src/repro/kernels/lsh_probe.py:58",
+    "lsh_probe_gathered": "src/repro/kernels/lsh_probe.py:116",
+    "fused_score_q": "src/repro/kernels/profile_distance.py:258",
 }
+# which path of phase 3 each kernel belongs to (its launches are read there)
+PATH_OF = {"fused_score": "discovery", "minhash": "discovery", "lsh_probe": "discovery",
+           "lsh_probe_gathered": "scale", "fused_score_q": "scale"}
+SIDE_BYTES = {"int8": 1, "fp16": 2}
 
 
 def log(msg: str) -> None:
@@ -90,15 +107,19 @@ def bound_ms(n_bytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def fused_score_bound(q: int, corpus_rows: int, pairs: int, t: int, d: int):
+def fused_score_bound(q: int, corpus_rows: int, pairs: int, t: int, d: int,
+                      num_bytes: int = 4):
     """Query and corpus profiles and the trees read once, one score per pair
     written once; per pair 21 subs and abs, T·D threshold compares, T adds
     and one divide (float32), and the 10x10 word compare-or, its sentinel
     tests and count, the first-word test and T·D index shifts/ors (int32).
-    A shared corpus has N rows and Q·N pairs; a gathered one Q·M of each."""
-    n_bytes = (q + corpus_rows) * (FT.F_NUM + FT.F_WORDS) * 4 + t * d * 8 \
-        + t * (1 << d) * 4 + pairs * 4
-    f32 = pairs * (2 * FT.F_NUM + t * d + t + 1)
+    A shared corpus has N rows and Q·N pairs; a gathered one Q·M of each.
+    A sidecar (``num_bytes`` 1 or 2 per numeric slot) adds its 21 scales to
+    the bytes and one dequantizing multiply per slot to each pair."""
+    n_bytes = q * (FT.F_NUM + FT.F_WORDS) * 4 \
+        + corpus_rows * (FT.F_NUM * num_bytes + FT.F_WORDS * 4) + t * d * 8 \
+        + t * (1 << d) * 4 + pairs * 4 + (FT.F_NUM * 4 if num_bytes != 4 else 0)
+    f32 = pairs * (2 * FT.F_NUM + t * d + t + 1 + (FT.F_NUM if num_bytes != 4 else 0))
     i32 = pairs * (2 * FT.N_FREQ_WORDS ** 2 + 2 * FT.N_FREQ_WORDS + 2 + 2 * t * d)
     return bound_ms(n_bytes, f32, i32)
 
@@ -115,15 +136,26 @@ def lsh_probe_bound(q: int, c: int, b: int):
     return bound_ms((q + c) * b * 4 + q * c * 4, 0.0, 2.0 * q * c * b)
 
 
+def lsh_probe_gathered_bound(q: int, c: int, b: int):
+    """Each query's own (C', B) gathered keys and its B keys read once, the
+    (Q, C') hit mask written once; a compare and an or per key."""
+    return bound_ms(q * c * b * 4 + q * b * 4 + q * c * 4, 0.0, 2.0 * q * c * b)
+
+
 def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
     """Mean CUDA-event time of ``fn`` with a cold L2: a 64 MB buffer is
-    rewritten before every timed launch."""
+    rewritten before every timed launch. The card then spins for ~0.5 ms
+    (``torch.cuda._sleep``) while the host runs ``fn``'s Python wrapper and
+    enqueues its kernel, so the start event fires with the launch already
+    queued: the time is the device's, not the wrapper's (for a kernel of
+    tens of microseconds the wrapper's host time is of the same order)."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
         flush.add_(1)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         start.record()
         fn()
         end.record()
@@ -171,6 +203,36 @@ def check_ragged(dev) -> None:
         ck = hashes_to_torch(r.integers(0, 40, (c, b)).astype(np.uint32), dev)
         if not torch.equal(ops.lsh_probe(qk, ck), ref.lsh_probe_ref(qk, ck)):
             raise AssertionError(f"lsh_probe differs from its plain version at {(q, c, b)}")
+    # B % 4 == 0 takes the kernel's 16-byte loads, other B and an unaligned
+    # (offset) view of the keys the one-key loads
+    for q, c, b in [(1, 1, 1), (3, 300, 16), (5, 257, 64), (2, 1000, 256),
+                    (3, 100, 12), (2, 333, 7)]:
+        qk = r.integers(0, 40, (q, b)).astype(np.uint32)
+        ck = r.integers(0, 40, (q, c, b)).astype(np.uint32)
+        ck[:, ::3] = PAD_CORPUS
+        qk[-1] = PAD_QUERY
+        qk = to_bits(hashes_to_torch(qk, dev))
+        ck = to_bits(hashes_to_torch(ck, dev))
+        unaligned = torch.empty(ck.numel() + 1, dtype=torch.int32, device=dev)[1:]
+        unaligned.copy_(ck.reshape(-1))
+        for keys in (ck, unaligned.view(ck.shape)):
+            got = from_bits(lsh_probe_gathered_cuda(qk, keys))
+            if not torch.equal(got.to(torch.int32),
+                               ref.lsh_probe_gathered_ref(from_bits(qk), from_bits(keys))):
+                raise AssertionError(f"lsh_probe_gathered differs from its plain version "
+                                     f"at {(q, c, b)}")
+    for dtype in SIDE_BYTES:
+        for q, n, t, d in [(1, 1, 1, 1), (5, 300, 50, 5), (13, 1029, 13, 6)]:
+            zq, wq = _random_profiles(r, (q,), dev)
+            g = _random_gbdt(r, t, d, dev)
+            for lead in ((n,), (q, n)):
+                z, wc = _random_profiles(r, lead, dev)
+                side, scale = quantize_profiles(z.cpu().numpy().reshape(-1, FT.F_NUM), dtype)
+                zc = torch.from_numpy(side.reshape(z.shape)).to(dev)
+                sc = torch.from_numpy(scale).to(dev)
+                torch.testing.assert_close(ops.fused_score_q(zq, wq, zc, sc, wc, g),
+                                           ref.fused_score_q_ref(zq, wq, zc, sc, wc, *g),
+                                           rtol=RTOL, atol=ATOL)
     torch.cuda.synchronize()
 
 
@@ -178,9 +240,31 @@ def check_ragged(dev) -> None:
 # phase 3: the discovery query at real size
 # ---------------------------------------------------------------------------
 
+def run_plans(run: dict, runs: dict, reps: int) -> None:
+    """Execute each (executor, plan, query batch): one first batch, then
+    ``reps`` synchronized steady batches; results and walls go into ``run``."""
+    for name, (executor, plan, args) in runs.items():
+        t0 = time.perf_counter()
+        run["results"][name] = executor.execute(plan, *args)
+        first = sync_wall(t0)
+        run["tiers"][name] = executor.last_tier_stats()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            executor.execute(plan, *args)
+        steady = sync_wall(t0) / reps
+        run["qps"][name] = len(args[0]) / steady
+        run["steady_ms"][name] = steady * 1e3
+        run["runs"][name] = (executor, plan, args)
+        log(f"plan {name} ({plan.kind}, {executor.profile_dtype}): budget {plan.budget}, "
+            f"survivor budget {plan.survivor_budget}, first batch {first * 1e3:.2f} ms, "
+            f"steady {steady * 1e3:.3f} ms/batch = {run['qps'][name]:.1f} queries/s "
+            f"(Q={len(args[0])}, k={K})")
+
+
 def main_path(dev, n_columns=N_COLUMNS, n_queries=N_QUERIES, reps=5):
-    """Train, ingest, index and query through the port's entry points.
-    Returns everything the checks and the kernel phase need."""
+    """The discovery path: train, ingest, index and query over float32
+    profiles through the port's entry points. Returns everything the checks,
+    the scale path and the kernel phase need."""
     walls = {}
     t0 = time.perf_counter()
     train_lake = generate_lake(LakeSpec(n_domains=16, n_tables=40, seed=0))
@@ -197,11 +281,12 @@ def main_path(dev, n_columns=N_COLUMNS, n_queries=N_QUERIES, reps=5):
     walls["ingest"] = sync_wall(t0)
     prof = lake_profiles(numeric, words, lake.batch.n_rows)
     t0 = time.perf_counter()
-    index = LSHIndex.build(sigs, LSHConfig(n_bands=N_BANDS))
+    index = LSHIndex.build(sigs, LSHConfig(n_bands=N_BANDS, n_coarse_bands=N_COARSE))
     walls["lsh_build"] = time.perf_counter() - t0
     log(f"ingest: {lake.n_columns} columns x {lake.batch.row_budget} rows generated in "
         f"{walls['generate']:.2f} s, profiled + signed (P={N_PERM}) in "
-        f"{walls['ingest']:.3f} s, band keys (B={N_BANDS}) in {walls['lsh_build']:.3f} s")
+        f"{walls['ingest']:.3f} s, band keys (B={N_BANDS}, S={N_COARSE}) in "
+        f"{walls['lsh_build']:.3f} s")
 
     t0 = time.perf_counter()
     executor = Executor(prof.zscored, prof.words, model.gbdt.astuple(),
@@ -216,23 +301,39 @@ def main_path(dev, n_columns=N_COLUMNS, n_queries=N_QUERIES, reps=5):
     plans = {"all": planner.plan(n_columns=lake.n_columns, mode="full"),
              "hybrid": hybrid,
              "lsh": QueryPlan(candidates="lsh", budget=hybrid.budget, k=K)}
-    results, qps, steady_ms = {}, {}, {}
-    for name, plan in plans.items():
+    run = dict(model=model, lake=lake, prof=prof, sigs=sigs, index=index, qids=qids,
+               batch=batch, plans=plans, walls=walls, executor=executor,
+               results={}, qps={}, steady_ms={}, tiers={}, runs={})
+    run_plans(run, {name: (executor, plan, batch) for name, plan in plans.items()}, reps)
+    return run
+
+
+def scale_path(run: dict, dev, reps=5) -> None:
+    """The large-lake scale path over the discovery path's profiles and
+    index: int8 and fp16 executors (only the sidecar and its scale on the
+    card), the tiered plan over the int8 sidecar and the quantized full
+    scans, each re-ranked exactly in float32."""
+    prof, index, lake, model = run["prof"], run["index"], run["lake"], run["model"]
+    executors = {}
+    for dtype in SIDE_BYTES:
         t0 = time.perf_counter()
-        results[name] = executor.execute(plan, *batch)
-        first = sync_wall(t0)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            executor.execute(plan, *batch)
-        steady = sync_wall(t0) / reps
-        qps[name] = len(qids) / steady
-        steady_ms[name] = steady * 1e3
-        log(f"plan {name}: budget {plan.budget}, first batch {first * 1e3:.2f} ms, "
-            f"steady {steady * 1e3:.3f} ms/batch = {qps[name]:.1f} queries/s "
-            f"(Q={len(qids)}, k={K})")
-    return dict(model=model, lake=lake, prof=prof, sigs=sigs, index=index, qids=qids,
-                batch=batch, plans=plans, results=results, qps=qps, walls=walls,
-                executor=executor, steady_ms=steady_ms)
+        executors[dtype] = Executor(prof.zscored, prof.words, model.gbdt.astuple(),
+                                    table_ids=lake.table, band_keys=index.keys,
+                                    coarse_keys=index.coarse, profile_dtype=dtype,
+                                    device=dev)
+        run["walls"][f"place_{dtype}"] = sync_wall(t0)
+    qids = run["qids"]
+    batch = run["batch"] + (index.coarse_query_keys(run["sigs"][qids]),)
+    planner = Planner(PlannerConfig(k=K))
+    tiered = planner.plan(n_columns=lake.n_columns, n_queries=len(qids), mode="tiered")
+    auto = planner.plan(n_columns=lake.n_columns, n_queries=len(qids), mode="auto")
+    log(f"auto: at {lake.n_columns} columns and Q={len(qids)} mode='auto' picks "
+        f"{auto.kind} (budget {auto.budget}, survivor budget {auto.survivor_budget}; "
+        f"{'the' if auto == tiered else 'not the'} tiered plan run below)")
+    run.update(auto=auto, scale_executors=executors)
+    run_plans(run, {"tiered_int8": (executors["int8"], tiered, batch),
+                    "all_int8": (executors["int8"], run["plans"]["all"], batch),
+                    "all_fp16": (executors["fp16"], run["plans"]["all"], batch)}, reps)
 
 
 def _same_ranking(name, s_ref, i_ref, s, i, tol=RTOL) -> None:
@@ -320,6 +421,110 @@ def check_main_path(run, dev) -> dict:
     return dict(recall=recall, scored=checks, partner_precision=partners)
 
 
+def reference_rerank(zq, wq, z32, w, g, sc, ids, k):
+    """The exact float32 re-rank with the plain scorer: the scan's (Q, R)
+    candidates rescored from their float32 rows, invalid slots excluded."""
+    safe = ids.clamp(min=0)
+    s = torch.where(torch.isfinite(sc), ref.fused_score_ref(zq, wq, z32[safe], w[safe], *g),
+                    float("-inf"))
+    s2, pos = stages.topk_stable(s, min(k, s.shape[1]))
+    return s2, torch.where(torch.isfinite(s2), torch.gather(ids, 1, pos), -1)
+
+
+def reference_tiered(zq, qk, qc, side, scale, ck, coarse, excl, plan, block_c):
+    """The tiered candidate stage with the plain probes, written out: digest
+    hits expanded to blocks by a per-block hit sum, the proxy fill, the
+    survivor gather, then the plain gathered probe and proxy over the
+    survivors and the fine gather. Returns the positions and counts."""
+    zf = side.to(torch.float32) * scale
+    fill = (2.0 * zq) @ zf.T - (zf * zf).sum(1)[None]
+    hit = ref.lsh_probe_ref(qc, coarse)
+    blocks = torch.arange(hit.shape[1], device=hit.device) // block_c
+    per_block = torch.zeros((hit.shape[0], int(blocks[-1]) + 1), device=hit.device)
+    block_hit = per_block.index_add_(1, blocks, hit.to(torch.float32))[:, blocks] > 0
+    prio = (torch.where(block_hit, stages._LSH_PRIORITY_BOOST, 0.0) + hit.to(torch.float32)
+            + fill / (1.0 + fill.abs()))
+    surv = min(max(plan.survivor_budget, plan.budget), side.shape[0])
+    budget = min(plan.budget, surv)
+    pos, valid = stages.gather_candidates(torch.where(excl, float("-inf"), prio), surv)
+    zg = zf[pos]
+    proxy = 2.0 * torch.einsum("qf,qmf->qm", zq, zg) - (zg * zg).sum(-1)
+    prio2 = (ref.lsh_probe_gathered_ref(qk, ck[pos]).to(torch.float32)
+             * stages._LSH_PRIORITY_BOOST + proxy / (1.0 + proxy.abs()))
+    pos2, valid2 = stages.gather_candidates(torch.where(valid, prio2, float("-inf")), budget)
+    return dict(pos=pos, gpos=torch.gather(pos, 1, pos2), valid2=valid2,
+                n_hits=((hit > 0) & ~excl).sum(1), n_surv=(block_hit & ~excl).sum(1))
+
+
+def check_scale_path(run, dev) -> dict:
+    """Hold each plan of the scale path against a plain pipeline over the
+    same candidates (plain probes, plain quantized scorer, plain exact
+    re-rank); gate the quantized top-k overlap with the float32 one."""
+    zq_np, wq_np, tq_np, qids, qk_np = run["batch"]
+    prof, model, index = run["prof"], run["model"], run["index"]
+    z32 = torch.from_numpy(prof.zscored.astype(np.float32)).to(dev)
+    w = hashes_to_torch(prof.words, dev)
+    cids = torch.arange(z32.shape[0], device=dev)
+    tids = torch.from_numpy(run["lake"].table.astype(np.int64)).to(dev)
+    zq = torch.from_numpy(zq_np).to(dev)
+    wq, qk = hashes_to_torch(wq_np, dev), hashes_to_torch(qk_np, dev)
+    qc = hashes_to_torch(index.coarse_query_keys(run["sigs"][qids]), dev)
+    tq = torch.from_numpy(tq_np.astype(np.int64)).to(dev)
+    qid = torch.from_numpy(qids.astype(np.int64)).to(dev)
+    g = gbdt_to_torch(model.gbdt.astuple(), dev)
+    excl = stages.exclusion_mask(cids, tids, tq, qid)
+    k_scan = 4 * K                                  # the executor's over-fetch
+    out = {}
+    for name in ("tiered_int8", "all_int8", "all_fp16"):
+        executor, plan, _ = run["runs"][name]
+        sc, ids, n_scored = run["results"][name]
+        side, scale = quantize_profiles(prof.zscored, executor.profile_dtype)
+        side, scale = torch.from_numpy(side).to(dev), torch.from_numpy(scale).to(dev)
+        if sc.shape != (len(qids), K) or np.isnan(sc).any():
+            raise AssertionError(f"{name}: result shape {sc.shape} or NaN scores")
+        if plan.candidates == "all":
+            s = torch.where(excl, float("-inf"),
+                            ref.fused_score_q_ref(zq, wq, side, scale, w, *g))
+            s_scan, i_scan = stages.merge_topk(s, cids, k_scan)
+            n_ref = np.full(len(qids), z32.shape[0])
+        else:
+            tr = reference_tiered(zq, qk, qc, side, scale,
+                                  hashes_to_torch(index.keys, dev),
+                                  hashes_to_torch(index.coarse, dev), excl, plan,
+                                  executor.survivor_block)
+            gpos = tr["gpos"]
+            s = torch.where(tr["valid2"], ref.fused_score_q_ref(zq, wq, side[gpos], scale,
+                                                                w[gpos], *g), float("-inf"))
+            s_scan, i_scan = stages.merge_topk(s, cids[gpos], min(k_scan, gpos.shape[1]))
+            n_ref = tr["valid2"].sum(1).cpu().numpy()
+            for got, want, what in zip(run["tiers"][name], (tr["n_hits"], tr["n_surv"]),
+                                       ("coarse hits", "survivors")):
+                if not np.array_equal(got, want.cpu().numpy()):
+                    raise AssertionError(f"{name}: {what} differ from the plain pipeline's")
+            run["tiered_ref"] = tr
+            log(f"{name}: mean coarse hits {float(tr['n_hits'].float().mean()):.1f}, "
+                f"mean digest survivors {float(tr['n_surv'].float().mean()):.1f} of "
+                f"{z32.shape[0]} columns, survivor budget {tr['pos'].shape[1]}")
+        s_ref, i_ref = reference_rerank(zq, wq, z32, w, g, s_scan, i_scan, K)
+        _same_ranking(name, s_ref, i_ref, sc, ids)
+        if not np.array_equal(n_scored, n_ref):
+            raise AssertionError(f"{name}: n_scored differs from the plain candidate count")
+        out[name] = float(n_scored.mean())
+    full = run["results"]["all"][1]
+    overlap = {name: float(np.mean([len(set(a[a >= 0]) & set(b[b >= 0])) / max((b >= 0).sum(), 1)
+                                    for a, b in zip(run["results"][name][1], full)]))
+               for name in ("tiered_int8", "all_int8", "all_fp16")}
+    log(f"check: every scale-path plan's ids equal its plain pipeline's top-{K} (up to exact "
+        f"ties), n_scored and tier counts equal; mean columns scored {out}")
+    log(f"top-{K} overlap with float32 all: {overlap} (tiered: recall, information only; "
+        f"quantized all: gate {OVERLAP_GATE})")
+    for name in ("all_int8", "all_fp16"):
+        if overlap[name] < OVERLAP_GATE:
+            raise AssertionError(f"{name}: top-{K} overlap {overlap[name]} with float32 "
+                                 f"is below {OVERLAP_GATE}")
+    return dict(scored=out, overlap=overlap)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: kernels at the main path's shapes and inputs
 # ---------------------------------------------------------------------------
@@ -381,9 +586,10 @@ def measure_kernels(run, dev, launches: dict) -> list:
     torch.testing.assert_close(got, ref.fused_score_ref(zq, wq, zg, wg, *g),
                                rtol=RTOL, atol=ATOL)
     g_ms = time_ms(lambda: fused_score_cuda(zq, wq_b, zg, wg_b, f32, th, lv, g[3]), 20, flush)
+    g_plain = time_ms(lambda: ref.fused_score_ref(zq, wq, zg, wg, *g), 3, flush)
     gb_ms, gb_by = fused_score_bound(zq.shape[0], pos.numel(), pos.numel(), t, d)
     log(f"kernel fused_score (gathered {tuple(zg.shape)}): {g_ms:.4f} ms "
-        f"(bound {gb_ms:.4f} ms by {gb_by})")
+        f"(bound {gb_ms:.4f} ms by {gb_by}), plain {g_plain:.3f} ms")
 
     # minhash at ingest's geometry: one chunk of profile_and_sign's column walk
     # (the scaled lake's 256 rows and 100k columns need no padding)
@@ -401,6 +607,50 @@ def measure_kernels(run, dev, launches: dict) -> list:
                       lambda: lsh_probe_cuda(qk_b, ck_b),
                       lambda: ref.lsh_probe_ref(qk, ck),
                       lsh_probe_bound(qk.shape[0], ck.shape[0], qk.shape[1]), 20, 3))
+    # ... and at the tiered coarse digest scan's: (Q, S) against (C, S)
+    qc = hashes_to_torch(run["index"].coarse_query_keys(run["sigs"][qids]), dev)
+    cc = hashes_to_torch(run["index"].coarse, dev)
+    if not torch.equal(ops.lsh_probe(qc, cc), ref.lsh_probe_ref(qc, cc)):
+        raise AssertionError("lsh_probe (coarse digest) differs from its plain version")
+    qc_b, cc_b = to_bits(qc), to_bits(cc)
+    c_ms = time_ms(lambda: lsh_probe_cuda(qc_b, cc_b), 20, flush)
+    cb_ms, cb_by = lsh_probe_bound(qc.shape[0], cc.shape[0], qc.shape[1])
+    log(f"kernel lsh_probe (coarse digest {tuple(qc.shape)} x {tuple(cc.shape)}): "
+        f"{c_ms:.4f} ms (bound {cb_ms:.4f} ms by {cb_by})")
+
+    # lsh_probe_gathered at the tiered fine probe's geometry: (Q, B) against
+    # each query's (C', B) survivor keys
+    tr = run["tiered_ref"]
+    kg = ck[tr["pos"]].contiguous()
+    kg_b = to_bits(kg)
+    out.append(record("lsh_probe_gathered", ops.lsh_probe_gathered(qk, kg),
+                      ref.lsh_probe_gathered_ref(qk, kg), True,
+                      lambda: lsh_probe_gathered_cuda(qk_b, kg_b),
+                      lambda: ref.lsh_probe_gathered_ref(qk, kg),
+                      lsh_probe_gathered_bound(*kg.shape), 20, 3))
+
+    # fused_score_q over the int8 sidecar: the quantized full scan's (Q, N)
+    side, scale = quantize_profiles(prof.zscored, "int8")
+    zs, sc = torch.from_numpy(side).to(dev), torch.from_numpy(scale).to(dev)
+    out.append(record("fused_score_q", ops.fused_score_q(zq, wq, zs, sc, w, g),
+                      ref.fused_score_q_ref(zq, wq, zs, sc, w, *g), False,
+                      lambda: fused_score_q_cuda(zq, wq_b, zs, sc, w_b, f32, th, lv, g[3]),
+                      lambda: ref.fused_score_q_ref(zq, wq, zs, sc, w, *g),
+                      fused_score_bound(zq.shape[0], zs.shape[0], zq.shape[0] * zs.shape[0],
+                                        t, d, num_bytes=1), 20, 3))
+    # ... gathered: the tiered plan's (Q, M, F) scored candidates
+    zsg, wsg = zs[tr["gpos"]].contiguous(), w[tr["gpos"]].contiguous()
+    wsg_b = to_bits(wsg)
+    got = ops.fused_score_q(zq, wq, zsg, sc, wsg, g)
+    torch.testing.assert_close(got, ref.fused_score_q_ref(zq, wq, zsg, sc, wsg, *g),
+                               rtol=RTOL, atol=ATOL)
+    gq_ms = time_ms(lambda: fused_score_q_cuda(zq, wq_b, zsg, sc, wsg_b, f32, th, lv, g[3]),
+                    20, flush)
+    gq_plain = time_ms(lambda: ref.fused_score_q_ref(zq, wq, zsg, sc, wsg, *g), 3, flush)
+    gqb_ms, gqb_by = fused_score_bound(zq.shape[0], tr["gpos"].numel(), tr["gpos"].numel(),
+                                       t, d, num_bytes=1)
+    log(f"kernel fused_score_q (gathered int8 {tuple(zsg.shape)}): {gq_ms:.4f} ms "
+        f"(bound {gqb_ms:.4f} ms by {gqb_by}), plain {gq_plain:.3f} ms")
     return out
 
 
@@ -413,9 +663,9 @@ def trace_plans(run) -> None:
     (torch.profiler), beside the batch's unprofiled steady wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for name, plan in run["plans"].items():
+    for name, (executor, plan, args) in run["runs"].items():
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
-            run["executor"].execute(plan, *run["batch"])
+            executor.execute(plan, *args)
             torch.cuda.synchronize()
         # device-side events only: a host op's own row repeats its kernels' time
         rows = sorted(((e.key[:48], e.self_device_time_total / 1e3, e.count)
@@ -427,6 +677,23 @@ def trace_plans(run) -> None:
         log(f"trace {name}: device busy {busy:.3f} ms of a {steady:.3f} ms steady batch "
             f"(idle share {max(0.0, 1 - busy / steady):.1%}); by self device time: "
             + "; ".join(f"{key} {ms:.3f} ms x{n}" for key, ms, n in rows[:8]))
+
+
+def counted(path: str, required, drive):
+    """Drive one path of phase 3 with every launch count set to 0 just
+    before it, read the counts just after, and fail if a kernel of the path
+    never launched. Returns (what ``drive`` returned, the counts)."""
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = drive()
+    counts = dict(_build.launch_counts)
+    geometry = {k: dict(v) for k, v in _build.geometry_counts.items()}
+    log(f"phase 3 ({path} path) in {sync_wall(t0):.2f} s; launches {counts}; "
+        f"scorer launches by geometry {geometry}")
+    missing = [k for k in required if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels of the {path} path never launched: {missing}")
+    return out, counts
 
 
 def main() -> int:
@@ -457,16 +724,16 @@ def main() -> int:
     log(f"phase 2: kernels equal their plain versions at ragged shapes "
         f"({time.perf_counter() - t0:.2f} s)")
 
-    # phase 3: the main path, counted
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    run = main_path(dev)
-    launches = dict(_build.launch_counts)
-    log(f"phase 3: main path in {sync_wall(t0):.2f} s; launches {launches}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    # phase 3: each path counted on its own
+    run, discovery = counted("discovery", ("fused_score", "minhash", "lsh_probe"),
+                             lambda: main_path(dev))
+    _, scale = counted("scale", ("lsh_probe", "lsh_probe_gathered", "fused_score_q",
+                                 "fused_score"), lambda: scale_path(run, dev))
+    counts = {"discovery": discovery, "scale": scale}
+    launches = {k: counts[PATH_OF[k]][k] for k in _build.KERNELS}
     t0 = time.perf_counter()
     check_main_path(run, dev)
+    check_scale_path(run, dev)
     log(f"phase 3 check: {time.perf_counter() - t0:.2f} s")
 
     # phase 4: kernels at the main path's shapes

@@ -40,8 +40,9 @@ def hashes_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def to_bits(t: torch.Tensor) -> torch.Tensor:
-    """int64 holding uint32 -> int32 with the same 32 bits (kernel input)."""
-    return ((t ^ 0x80000000) - 0x80000000).to(torch.int32)
+    """int64 holding uint32 -> contiguous int32 with the same 32 bits (kernel
+    input; a column slice of a numpy array arrives with Fortran strides)."""
+    return ((t ^ 0x80000000) - 0x80000000).to(torch.int32).contiguous()
 
 
 def from_bits(t: torch.Tensor) -> torch.Tensor:

@@ -1,29 +1,37 @@
-"""Query planner for local plans: lake size × batch size -> QueryPlan.
+"""Query planner for local plans: lake size × batch size × cost -> QueryPlan.
 
-The port of ``repro.exec.plan`` for the local ``full`` and ``lsh`` modes. A
-:class:`QueryPlan` names the candidate stage (``all``, ``lsh`` or
-``hybrid``), the candidate budget and k. As in the JAX package,
-``mode="lsh"`` resolves to the **hybrid** candidate stage (LSH hits first,
-then profile-space proximity); the bare ``lsh`` stage is reached by building
-a :class:`QueryPlan` directly. Sharded and tiered plans and the cost-model
-``auto`` mode wait for later slices.
+The port of ``repro.exec.plan`` for local plans. A :class:`QueryPlan` names
+the candidate stage (``all``, ``lsh``, ``hybrid`` or ``tiered``), the
+candidate budget, the tiered stage's survivor budget and k. As in the JAX
+package, ``mode="lsh"`` resolves to the **hybrid** candidate stage (LSH hits
+first, then profile-space proximity); the bare ``lsh`` stage is reached by
+building a :class:`QueryPlan` directly. ``mode="tiered"`` is the two-tier
+stage (coarse digest scan → survivor gather → fine probe), and
+``mode="auto"`` picks among ``all``, ``hybrid`` and ``tiered`` by the cost
+hook (``launch.costmodel.discovery_stage_costs`` unless the caller injects
+another). Sharded plans, ``plan_set`` and the bucket ladders wait for later
+slices: without a mesh every plan is local.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 from repro_torch.exec.stages import CANDIDATE_KINDS
+from repro_torch.launch.costmodel import discovery_stage_costs
 
-MODES = ("lsh", "full")
+MODES = ("auto", "lsh", "full", "tiered")
 
 
 @dataclasses.dataclass(frozen=True)
 class QueryPlan:
     """One fully-resolved execution plan for a query micro-batch."""
 
-    candidates: str                 # "all" | "lsh" | "hybrid"
+    candidates: str                 # "all" | "lsh" | "hybrid" | "tiered"
     budget: int                     # candidate budget (n for "all")
     k: int
+    survivor_budget: int = 0        # tiered only: coarse-pass gather width C'
+    cost: dict = dataclasses.field(default_factory=dict, compare=False)
 
     def __post_init__(self):
         if self.candidates not in CANDIDATE_KINDS:
@@ -40,24 +48,89 @@ class PlannerConfig:
     k: int = 10
     candidate_frac: float = 0.2     # pruned budget as a fraction of the lake
     max_candidates: int = 4096      # absolute cap on that budget
+    n_bands: int = 64
+    # ---- tiered candidate stage ----
+    n_coarse_bands: int = 16        # super-band digest width S
+    survivor_block: int = 32        # coarse survivor-block granularity
+    survivor_frac: float = 0.05     # survivor budget as a fraction of the lake
+    min_survivors: int = 512        # survivor budget floor
+    # the survivor width is also the scoring width (tiered plans cap their
+    # budget at it), so the cap guards the scorer's cost
+    max_survivors: int = 2048       # survivor budget cap
 
 
 class Planner:
-    """Resolves (mode, lake size) into a local :class:`QueryPlan`."""
+    """Resolves (mode, lake size, batch size) into a local :class:`QueryPlan`.
 
-    def __init__(self, config: PlannerConfig | None = None):
+    ``cost_fn(n_queries, n_columns, budget=..., candidates=..., k=...,
+    n_bands=..., n_shards=..., q_shards=...)`` (plus ``survivor_budget`` and
+    ``n_coarse_bands`` for the tiered stage) returns a dict with at least
+    ``total_flops``; a measured ``total_cost`` takes precedence in "auto".
+    """
+
+    def __init__(self, config: PlannerConfig | None = None,
+                 cost_fn: Callable | None = None):
         self.config = config or PlannerConfig()
+        self.cost_fn = cost_fn or discovery_stage_costs
 
     def candidate_budget(self, n_columns: int) -> int:
         cfg = self.config
         want = max(cfg.k, int(n_columns * cfg.candidate_frac))
         return max(1, min(want, cfg.max_candidates, n_columns))
 
-    def plan(self, *, n_columns: int, mode: str = "full") -> QueryPlan:
+    def survivor_budget(self, n_columns: int, budget: int) -> int:
+        """Coarse-pass gather width C' of a tiered plan: a fraction of the
+        lake, floored by ``min_survivors``, capped by ``max_survivors`` and
+        the lake, rounded up to the survivor block."""
+        cfg = self.config
+        want = max(int(n_columns * cfg.survivor_frac), cfg.min_survivors)
+        want = min(want, cfg.max_survivors, max(n_columns, 1))
+        blk = max(int(cfg.survivor_block), 1)
+        return min(max(n_columns, 1), -(-want // blk) * blk)
+
+    def _cost(self, candidates: str, n_queries: int, n_columns: int,
+              budget: int, survivor_budget: int = 0) -> dict:
+        kw = {}
+        if candidates == "tiered":
+            # only the tiered stage carries the extra geometry
+            kw = dict(survivor_budget=survivor_budget or
+                      self.survivor_budget(n_columns, budget),
+                      n_coarse_bands=self.config.n_coarse_bands)
+        return self.cost_fn(n_queries, n_columns, budget=budget,
+                            candidates=candidates, k=self.config.k,
+                            n_bands=self.config.n_bands, n_shards=1,
+                            q_shards=1, **kw)
+
+    def plan(self, *, n_columns: int, n_queries: int = 1, mode: str = "auto") -> QueryPlan:
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; want one of {MODES}")
+        cfg = self.config
+        budget = self.candidate_budget(n_columns)
         if mode == "full":
-            return QueryPlan(candidates="all", budget=n_columns, k=self.config.k)
-        return QueryPlan(candidates="hybrid",
-                         budget=self.candidate_budget(n_columns),
-                         k=self.config.k)
+            cand = "all"
+        elif mode == "tiered":
+            cand = "tiered"
+        elif mode == "lsh":
+            cand = "hybrid"
+        else:
+            # auto: a pruned plan pays its probe and proxy over every column
+            # to score only `budget` of them, so it wins when the budget is
+            # small against the lake; tiered must win strictly
+            pick = lambda c: c.get("total_cost", c["total_flops"])
+            c_full = self._cost("all", n_queries, n_columns, n_columns)
+            c_pruned = self._cost("hybrid", n_queries, n_columns, budget)
+            cand = "hybrid" if pick(c_pruned) < pick(c_full) else "all"
+            if cfg.n_coarse_bands > 0:
+                c_tier = self._cost("tiered", n_queries, n_columns, budget)
+                if pick(c_tier) < min(pick(c_pruned), pick(c_full)):
+                    cand = "tiered"
+        if cand == "all":
+            budget = n_columns
+        surv = self.survivor_budget(n_columns, budget) if cand == "tiered" else 0
+        if cand == "tiered":
+            # the fine tier scores no more columns than the coarse pass gathered
+            budget = min(budget, surv)
+        cost = self._cost(cand, n_queries, max(n_columns, 1), max(budget, 1),
+                          survivor_budget=surv)
+        return QueryPlan(candidates=cand, budget=budget, k=cfg.k,
+                         survivor_budget=surv, cost=cost)

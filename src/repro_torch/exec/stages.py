@@ -4,10 +4,14 @@ The port of ``repro.exec.stages`` for local plans. Every discovery query is
 the same three-stage pipeline over the resident corpus:
 
 1. **candidates** — ``all`` (every live column), ``lsh`` (banded-MinHash
-   bucket probe, ``kernels/csrc/lsh_probe.cu``) or ``hybrid`` (LSH hits
-   ranked first, the remaining budget filled by profile-space proximity);
+   bucket probe, ``kernels/csrc/lsh_probe.cu``), ``hybrid`` (LSH hits
+   ranked first, the remaining budget filled by profile-space proximity)
+   or ``tiered`` (a coarse digest probe over the whole lake picks survivor
+   blocks, then the fine probe ``kernels/csrc/lsh_probe_gathered.cu`` and
+   the proxy rank only the gathered survivors);
 2. **score** — distance features + GBDT over the surviving columns, in the
-   fused kernel ``kernels/csrc/fused_score.cu``;
+   fused kernel ``kernels/csrc/fused_score.cu`` (``fused_score_q.cu`` for
+   an int8 or float16 sidecar);
 3. **merge** — top-k.
 
 Top-k order. ``jax.lax.top_k`` puts the lower index first among equal
@@ -21,7 +25,7 @@ import torch
 
 from repro_torch.kernels import ops
 
-CANDIDATE_KINDS = ("all", "lsh", "hybrid")
+CANDIDATE_KINDS = ("all", "lsh", "hybrid", "tiered")
 
 # LSH hits outrank every profile-proximity score: the proxy is squashed
 # into (-1, 1), so any offset > 2 keeps the two bands disjoint.
@@ -76,6 +80,54 @@ def candidate_priorities(kind: str, zq, qkeys, z, ckeys, cids, tids, tq, qid):
     return torch.where(excl, float("-inf"), prio)
 
 
+def tiered_survivors(qcoarse, coarse, cids, tids, tq, qid, *,
+                     survivor_budget: int, block_c: int = 32, proxy=None):
+    """Coarse pass of the tiered stage: pick survivor blocks.
+
+    Probes the (C, S) super-band digest with the (Q, S) coarse query keys,
+    expands column hits to blocks of ``block_c`` contiguous columns and keeps
+    up to ``survivor_budget`` columns per query, direct hits above their
+    block-mates. ``proxy`` (Q, C), when given, fills the slots the digest
+    left empty with the proxy-nearest columns, strictly below every digest
+    hit and its block.
+
+    Returns ``(pos, valid, n_hits, n_survivors)``: gather positions (Q, M'),
+    their validity, and per query the direct coarse hits and the
+    digest-eligible survivor columns (proxy fill does not count).
+    """
+    c = coarse.shape[0]
+    hit = ops.lsh_probe(qcoarse, coarse)                          # (Q, C)
+    nb = -(-c // block_c)
+    hp = torch.nn.functional.pad(hit, (0, nb * block_c - c))
+    block_hit = (hp.reshape(hit.shape[0], nb, block_c) > 0).any(-1)
+    block_hit = block_hit.repeat_interleave(block_c, dim=1)[:, :c]  # (Q, C)
+    excl = exclusion_mask(cids, tids, tq, qid)
+    if proxy is None:
+        prio = torch.where(block_hit, 1.0, float("-inf")) + hit.to(torch.float32)
+    else:
+        prio = (torch.where(block_hit, _LSH_PRIORITY_BOOST, 0.0)
+                + hit.to(torch.float32)
+                + proxy / (1.0 + torch.abs(proxy)))
+    prio = torch.where(excl, float("-inf"), prio)
+    pos, valid = gather_candidates(prio, survivor_budget)
+    n_hits = ((hit > 0) & ~excl).sum(1)
+    n_survivors = (block_hit & ~excl).sum(1)
+    return pos, valid, n_hits, n_survivors
+
+
+def tiered_priorities(zq, qkeys, zg, keys_g, valid):
+    """Fine pass of the tiered stage over gathered survivors: ``zg``
+    (Q, M', F_NUM) float32 profiles and ``keys_g`` (Q, M', B) fine band keys
+    of each query's survivors. The gathered probe plus the per-query proxy
+    rank them as the hybrid stage ranks the lake. Returns (Q, M')
+    priorities, -inf on invalid slots."""
+    hit = ops.lsh_probe_gathered(qkeys, keys_g)
+    proxy = 2.0 * torch.einsum("qf,qmf->qm", zq, zg) - (zg * zg).sum(-1)
+    proxy = proxy / (1.0 + torch.abs(proxy))
+    prio = hit.to(torch.float32) * _LSH_PRIORITY_BOOST + proxy
+    return torch.where(valid, prio, float("-inf"))
+
+
 def gather_candidates(prio, budget: int):
     """Top-``budget`` columns by priority -> (positions (Q, M), valid (Q, M));
     invalid slots (priority -inf) are budget the scorer must ignore."""
@@ -83,11 +135,15 @@ def gather_candidates(prio, budget: int):
     return pos, torch.isfinite(pval)
 
 
-def score_columns(zq, wq, zc, wc, gbdt_tuple):
+def score_columns(zq, wq, zc, wc, gbdt_tuple, scale=None):
     """GBDT join-quality scores. zc/wc (C, F) -> (Q, C); (Q, M, F) gathered
-    candidates score per-query sets. The fused kernel on the card (where
-    the JAX executor scores with a jnp mirror of its Pallas kernel)."""
-    return ops.fused_score(zq, wq, zc, wc, gbdt_tuple)
+    candidates score per-query sets. A float32 ``zc`` goes to the fused
+    kernel, an int8 or float16 sidecar (with its ``scale``) to the quantized
+    one, on the card (where the JAX executor scores with a jnp mirror of
+    its Pallas kernel over the dequantized profiles)."""
+    if zc.dtype == torch.float32:
+        return ops.fused_score(zq, wq, zc, wc, gbdt_tuple)
+    return ops.fused_score_q(zq, wq, zc, scale, wc, gbdt_tuple)
 
 
 def merge_topk(scores, cids, k: int):

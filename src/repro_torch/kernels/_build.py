@@ -4,21 +4,25 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes``. The build
 happens on first use, never at import: one ``nvcc`` per source, all started
 together, into ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``). A library's file name carries a hash of its source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``.gitignore``). A library's file name carries a hash of its source, of
+every ``csrc`` header it includes (``#include "..."``, followed through
+headers) and of the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.
 
 There is no fast-math and no TF32 anywhere: the scorer's features feed
 ``>=`` threshold compares, where one ulp flips a leaf.
 
 ``launch_counts`` holds one plain integer per kernel; a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. ``geometry_counts`` splits the two
+scorers' launches by corpus geometry (``shared`` or ``gathered``).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +30,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("fused_score", "minhash", "lsh_probe")
+KERNELS = ("fused_score", "minhash", "lsh_probe", "lsh_probe_gathered",
+           "fused_score_q")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,9 +49,20 @@ _SIGNATURES = {
         "freyja_lsh_probe": ([_P] * 3 + [_I, _I, _I, _P], _I),
         "freyja_lsh_probe_max_bands": ([], _I),
     },
+    "lsh_probe_gathered": {
+        "freyja_lsh_probe_gathered": ([_P] * 3 + [_I, _I, _I, _P], _I),
+        "freyja_lsh_probe_gathered_max_bands": ([], _I),
+    },
+    "fused_score_q": {
+        "freyja_fused_score_q": ([_P] * 8 + [_F, _P, _I, _I, _LL, _I, _I, _I, _P], _I),
+        "freyja_fused_score_q_smem": ([_I, _I], _LL),
+    },
 }
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 launch_counts = {name: 0 for name in KERNELS}
+geometry_counts = {name: {"shared": 0, "gathered": 0}
+                   for name in ("fused_score", "fused_score_q")}
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -54,10 +70,14 @@ _lock = threading.Lock()
 def reset_launch_counts() -> None:
     for name in KERNELS:
         launch_counts[name] = 0
+    for split in geometry_counts.values():
+        split.update(shared=0, gathered=0)
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, geometry: str | None = None) -> None:
     launch_counts[name] += 1
+    if geometry is not None:
+        geometry_counts[name][geometry] += 1
 
 
 def _nvcc() -> str:
@@ -72,10 +92,24 @@ def _nvcc() -> str:
     return found
 
 
+def sources(name: str) -> list[str]:
+    """Kernel ``name``'s ``.cu`` file and every ``csrc`` header it includes
+    with quotes, directly or through another header, sorted."""
+    seen, todo = set(), [f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f not in seen:
+            seen.add(f)
+            todo += [m.decode() for m in _LOCAL_INCLUDE.findall((_CSRC / f).read_bytes())]
+    return sorted(seen)
+
+
 def library_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for f in sources(name):
+        h.update(f.encode() + b"\0" + (_CSRC / f).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict[str, Path]:

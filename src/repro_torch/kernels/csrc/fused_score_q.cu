@@ -1,0 +1,48 @@
+// Fused scorer over a quantized corpus sidecar for Hopper (sm_90a).
+//
+// Replaces: repro/kernels/profile_distance.py::fused_score_q_pallas (the
+//   Pallas kernel _fused_q_kernel: dequantize, _distances, _fused_body).
+// Bound on the H100 at the main path's shapes (int8 sidecar, Q = 64 queries
+//   against N = 100k columns, T = 50, D = 5): operations, the same work per
+//   pair as fused_score.cu (~0.17 ms). The bytes shrink to the 21-byte int8
+//   rows and 44 bytes of words per column (~6.5 MB) plus the (Q, N) score
+//   matrix (25.6 MB).
+// Design: the body of fused_score.cu (fused_score.cuh) with the corpus
+//   element type templated, int8_t (scale = abs-max / 127 per feature) or
+//   __half (scale 1). The 21 scales sit in shared memory beside the tree
+//   tables, and each element is dequantized where it is read, as
+//   float(v) * scale[f] with one IEEE multiply, which is the plain version's
+//   arithmetic: the kernel's scores equal fused_score_q_ref's. Shared (N, F)
+//   and gathered (Q, M, F) sidecars are served by the query stride, as in
+//   the float32 kernel.
+
+#include "fused_score.cuh"
+
+extern "C" {
+
+long long freyja_fused_score_q_smem(int n_trees, int depth) {
+  return (long long)freyja_fused::smem_bytes(n_trees, depth);
+}
+
+// As freyja_fused_score, with zc an int8 (dtype 0) or float16 (dtype 1)
+// sidecar and scale its (21,) f32 dequantization multiplier.
+int freyja_fused_score_q(const void* zq, const void* wq, const void* zc,
+                         const void* scale, const void* wc, const void* feats,
+                         const void* thrs, const void* leaves, float base, void* out,
+                         int n_queries, int n_cols, long long q_stride_rows,
+                         int n_trees, int depth, int dtype, void* stream) {
+  switch (dtype) {
+    case 0:
+      return freyja_fused::launch<int8_t>(zq, wq, zc, scale, wc, feats, thrs, leaves,
+                                          base, out, n_queries, n_cols, q_stride_rows,
+                                          n_trees, depth, stream);
+    case 1:
+      return freyja_fused::launch<__half>(zq, wq, zc, scale, wc, feats, thrs, leaves,
+                                          base, out, n_queries, n_cols, q_stride_rows,
+                                          n_trees, depth, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

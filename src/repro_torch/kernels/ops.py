@@ -11,11 +11,11 @@ import torch
 
 from repro_torch.device import from_bits, to_bits
 from repro_torch.kernels import ref
-from repro_torch.kernels.lsh_probe import lsh_probe_cuda
+from repro_torch.kernels.lsh_probe import lsh_probe_cuda, lsh_probe_gathered_cuda
 from repro_torch.kernels.minhash import minhash_cuda
-from repro_torch.kernels.profile_distance import fused_score_cuda
+from repro_torch.kernels.profile_distance import fused_score_cuda, fused_score_q_cuda
 
-__all__ = ["fused_score", "minhash", "lsh_probe"]
+__all__ = ["fused_score", "fused_score_q", "minhash", "lsh_probe", "lsh_probe_gathered"]
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -38,6 +38,19 @@ def fused_score(zq, wq, zc, wc, gbdt_tuple):
                             thrs.contiguous(), leaves.contiguous(), float(base))
 
 
+def fused_score_q(zq, wq, zc, scale, wc, gbdt_tuple):
+    """:func:`fused_score` over an int8 or float16 sidecar ``zc``, shared
+    (N, F_NUM) or gathered (Q, M, F_NUM), dequantized in the kernel with
+    its (F_NUM,) float32 ``scale``."""
+    feats, thrs, leaves, base = gbdt_tuple
+    if not _on_cuda(zq, "fused_score_q"):
+        return ref.fused_score_q_ref(zq, wq, zc, scale, wc, feats, thrs, leaves, base)
+    return fused_score_q_cuda(zq.contiguous(), to_bits(wq), zc.contiguous(),
+                              scale.to(torch.float32).contiguous(), to_bits(wc),
+                              feats.to(torch.int32).contiguous(), thrs.contiguous(),
+                              leaves.contiguous(), float(base))
+
+
 def minhash(values, a, b):
     """(C, P) MinHash signatures of (C, R) values under permutations a, b."""
     if not _on_cuda(values, "minhash"):
@@ -50,3 +63,11 @@ def lsh_probe(qkeys, ckeys):
     if not _on_cuda(qkeys, "lsh_probe"):
         return ref.lsh_probe_ref(qkeys, ckeys)
     return lsh_probe_cuda(to_bits(qkeys), to_bits(ckeys))
+
+
+def lsh_probe_gathered(qkeys, ckeys):
+    """(Q, C') int32 hit mask of (Q, B) query keys against each query's own
+    (Q, C', B) gathered key rows."""
+    if not _on_cuda(qkeys, "lsh_probe_gathered"):
+        return ref.lsh_probe_gathered_ref(qkeys, ckeys)
+    return lsh_probe_gathered_cuda(to_bits(qkeys), to_bits(ckeys))

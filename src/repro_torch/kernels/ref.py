@@ -60,6 +60,13 @@ def fused_score_ref(z_q, w_q, z_c, w_c, feats, thrs, leaves, base):
                           feats, thrs, leaves, base)
 
 
+def fused_score_q_ref(z_q, w_q, z_c, scale, w_c, feats, thrs, leaves, base):
+    """The quantized scorer: :func:`fused_score_ref` on the dequantized
+    sidecar ``z_c.to(float32) * scale`` (one IEEE multiply per element)."""
+    return fused_score_ref(z_q, w_q, z_c.to(torch.float32) * scale, w_c,
+                           feats, thrs, leaves, base)
+
+
 def _mul_u32(a, v):
     """(a · v) mod 2^32 for int64 tensors holding uint32 values, without
     leaving the int64 range: a = a_hi·2^16 + a_lo."""
@@ -88,3 +95,10 @@ def lsh_probe_ref(qkeys, ckeys):
     """Banded-LSH bucket probe. qkeys (Q, B), ckeys (C, B) -> (Q, C) int32:
     1 iff the pair shares a bucket key in any band."""
     return (qkeys[:, None, :] == ckeys[None, :, :]).any(-1).to(torch.int32)
+
+
+def lsh_probe_gathered_ref(qkeys, ckeys):
+    """Probe against per-query gathered key rows. qkeys (Q, B), ckeys
+    (Q, C', B) -> (Q, C') int32: 1 iff row c' of query q shares a key with
+    the query in any band."""
+    return (qkeys[:, None, :] == ckeys).any(-1).to(torch.int32)

@@ -10,6 +10,11 @@ The keys are numpy FNV-1a, byte-identical with ``repro.service.lsh``
 the ``P % B`` trailing rows into the last band). The probe is the device
 kernel ``kernels/csrc/lsh_probe.cu``: (Q, B) query keys against the
 resident (C, B) catalog keys in one pass.
+
+Two tiers live side by side: the fine (C, B) band keys, and a small (C, S)
+coarse *super-band* digest (S single-row bands sampled evenly across the
+permutations) that the tiered candidate stage scans first over the whole
+lake to pick survivor blocks.
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ _REMAINDER_WARNED: set[tuple[int, int]] = set()
 
 @dataclasses.dataclass(frozen=True)
 class LSHConfig:
-    n_bands: int = 64          # rows per band = n_perm // n_bands
+    n_bands: int = 64          # fine bands; rows per band = n_perm // n_bands
+    n_coarse_bands: int = 16   # single-row super-bands for the coarse tier
 
     def rows_per_band(self, n_perm: int) -> int:
         r = n_perm // self.n_bands
@@ -78,22 +84,63 @@ def band_keys(signatures: np.ndarray, n_bands: int) -> np.ndarray:
     return _fold32(h)
 
 
+def coarse_band_keys(signatures: np.ndarray, n_coarse_bands: int) -> np.ndarray:
+    """(C, P) signatures -> (C, S) single-row super-band digest keys.
+
+    S evenly spaced permutation rows, each hashed on its own: a single-row
+    band collides with probability J (the raw Jaccard), far more permissive
+    than a fine band's J^r, so a small S already catches the pairs the fine
+    tier would keep.
+    """
+    c, p = signatures.shape
+    if n_coarse_bands > p:
+        raise ValueError(
+            f"n_coarse_bands={n_coarse_bands} exceeds signature width {p}")
+    rows = (np.arange(n_coarse_bands) * p) // n_coarse_bands
+    s = signatures[:, rows].astype(np.uint64)            # (C, S)
+    return _fold32((_FNV_OFFSET ^ s) * _FNV_PRIME)
+
+
 @dataclasses.dataclass
 class LSHIndex:
-    """Bucket keys for the resident catalog + the device probe."""
+    """Bucket keys for the resident catalog + the device probe: the fine
+    (C, B) band keys and, when ``0 < S <= P``, the (C, S) coarse digest."""
 
     config: LSHConfig
-    keys: np.ndarray               # (C, B) uint32 band keys
+    keys: np.ndarray                   # (C, B) uint32 fine band keys
+    coarse: np.ndarray | None = None   # (C, S) uint32 super-band digest
 
     @classmethod
     def build(cls, signatures: np.ndarray, config: LSHConfig = LSHConfig()):
-        return cls(config=config, keys=band_keys(signatures, config.n_bands))
+        coarse = None
+        if 0 < config.n_coarse_bands <= signatures.shape[1]:
+            coarse = coarse_band_keys(signatures, config.n_coarse_bands)
+        return cls(config=config, keys=band_keys(signatures, config.n_bands),
+                   coarse=coarse)
+
+    @property
+    def n_columns(self) -> int:
+        return int(self.keys.shape[0])
 
     def query_keys(self, signatures_q: np.ndarray) -> np.ndarray:
         return band_keys(signatures_q, self.config.n_bands)
+
+    def coarse_query_keys(self, signatures_q: np.ndarray) -> np.ndarray:
+        """(Q, P) query signatures -> (Q, S) super-band digest keys."""
+        if self.coarse is None:
+            raise ValueError("index was built without a coarse digest")
+        return coarse_band_keys(signatures_q, self.config.n_coarse_bands)
 
     def hit_mask(self, qkeys: np.ndarray, *, device=None) -> torch.Tensor:
         """(Q, B) query keys -> (Q, C) int32 candidate mask on ``device``."""
         dev = resolve_device(device)
         return ops.lsh_probe(hashes_to_torch(qkeys, dev),
                              hashes_to_torch(self.keys, dev))
+
+    def coarse_hit_mask(self, qkeys_coarse: np.ndarray, *, device=None) -> torch.Tensor:
+        """(Q, S) coarse keys -> (Q, C) int32 survivor mask on ``device``."""
+        if self.coarse is None:
+            raise ValueError("index was built without a coarse digest")
+        dev = resolve_device(device)
+        return ops.lsh_probe(hashes_to_torch(qkeys_coarse, dev),
+                             hashes_to_torch(self.coarse, dev))

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 its entry points refuse to run on the host unless the caller asks for it."""
 import os
+import shutil
 import subprocess
 import sys
 
@@ -30,8 +31,14 @@ for name in names:
     importlib.import_module(name)
 from repro_torch.kernels import _build
 assert not _build._libs, "a kernel was built at import"
-print(len(names))
+print(" ".join(names))
 """
+
+# modules of the scale path that the walk must reach
+_SCALE_MODULES = {"repro_torch.launch", "repro_torch.launch.costmodel",
+                  "repro_torch.exec.plan", "repro_torch.exec.stages",
+                  "repro_torch.exec.executor", "repro_torch.kernels.profile_distance",
+                  "repro_torch.kernels.lsh_probe", "repro_torch.service.lsh"}
 
 
 def test_port_imports_without_jax_or_repro():
@@ -39,7 +46,9 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20        # every module was imported
+    names = set(out.stdout.split())
+    assert len(names) >= 22                     # every module was imported
+    assert _SCALE_MODULES <= names, _SCALE_MODULES - names
 
 
 def test_kernel_sources_are_keyed_by_content():
@@ -48,6 +57,22 @@ def test_kernel_sources_are_keyed_by_content():
     for name, path in paths.items():
         assert path.parent == _build.BUILD_DIR and name in path.name
         assert path == _build.library_path(name)      # stable for one source
+    # both scorers include the shared body; the other kernels include nothing
+    assert _build.sources("fused_score") == ["fused_score.cu", "fused_score.cuh"]
+    assert _build.sources("fused_score_q") == ["fused_score.cuh", "fused_score_q.cu"]
+    assert _build.sources("minhash") == ["minhash.cu"]
+
+
+def test_an_edited_header_rebuilds_every_kernel_that_includes_it(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    before = {name: _build.library_path(name) for name in _build.KERNELS}
+    with open(csrc / "fused_score.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {name: _build.library_path(name) for name in _build.KERNELS}
+    changed = {name for name in _build.KERNELS if before[name] != after[name]}
+    assert changed == {"fused_score", "fused_score_q"}
 
 
 @pytest.fixture(scope="module")
@@ -71,6 +96,11 @@ _ENTRY_POINTS = {
     "LSHIndex.hit_mask": lambda lake, prof, model: LSHIndex.build(
         np.zeros((4, 16), np.uint32), LSHConfig(n_bands=4)).hit_mask(
             np.zeros((1, 4), np.uint32)),
+    "LSHIndex.coarse_hit_mask": lambda lake, prof, model: LSHIndex.build(
+        np.zeros((4, 16), np.uint32), LSHConfig(n_bands=4)).coarse_hit_mask(
+            np.zeros((1, 16), np.uint32)),
+    "Executor(int8)": lambda lake, prof, model: Executor(
+        prof.zscored, prof.words, model.gbdt.astuple(), profile_dtype="int8"),
 }
 
 

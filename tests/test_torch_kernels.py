@@ -7,15 +7,17 @@ import pytest
 import torch
 
 from repro.exec import stages as jstages
-from repro.kernels.lsh_probe import lsh_probe_pallas
+from repro.kernels.lsh_probe import lsh_probe_gathered_pallas, lsh_probe_pallas
 from repro.kernels.minhash import make_permutations as jax_make_permutations
 from repro.kernels.minhash import minhash_pallas
-from repro.kernels.profile_distance import fused_score_pallas
+from repro.kernels.profile_distance import dequantize as jax_dequantize
+from repro.kernels.profile_distance import fused_score_pallas, fused_score_q_pallas
 from repro_torch.core import features as FT
-from repro_torch.device import hashes_to_numpy, hashes_to_torch
+from repro_torch.device import from_bits, hashes_to_numpy, hashes_to_torch, to_bits
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.lsh_probe import PAD_CORPUS, PAD_QUERY
+from repro_torch.kernels.lsh_probe import PAD_CORPUS, PAD_QUERY, lsh_probe_gathered_cuda
 from repro_torch.kernels.minhash import make_permutations
+from repro_torch.kernels.profile_distance import quantize_profiles
 
 # scores: the tolerances of tests/test_kernels.py (float32 GBDT sums)
 RTOL, ATOL = 1e-4, 1e-5
@@ -127,6 +129,82 @@ def test_lsh_probe_matches_pallas(q, c, b):
     assert got.any()
 
 
+def _gathered_keys(q, c, b, seed):
+    rng = np.random.default_rng(seed)
+    qk = rng.integers(0, 50, (q, b)).astype(np.uint32)
+    ck = rng.integers(0, 50, (q, c, b)).astype(np.uint32)
+    ck[:, ::3] = PAD_CORPUS                                # padded survivor rows
+    if c > 1:
+        ck[0, 1, 0] = qk[0, 0]                             # a hit, unless q == 1
+    qk[-1, :] = PAD_QUERY                                  # a padded query row
+    return qk, ck
+
+
+@pytest.mark.parametrize("q,c,b", [(1, 1, 16), (3, 300, 16), (5, 257, 64),
+                                   (2, 513, 64)])
+def test_lsh_probe_gathered_matches_pallas(q, c, b):
+    qk, ck = _gathered_keys(q, c, b, seed=q * c + b)
+    want = lsh_probe_gathered_pallas(jnp.asarray(qk), jnp.asarray(ck), block_q=2,
+                                     block_c=256, interpret=True)
+    got = ops.lsh_probe_gathered(hashes_to_torch(qk, "cpu"), hashes_to_torch(ck, "cpu"))
+    assert got.dtype == torch.int32 and got.shape == (q, c)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert bool(got.any()) == (q > 1 and c > 1)
+    assert not got[-1].any() and not got[:, ::3].any()
+
+
+def _quantized(r, lead, dtype):
+    """(sidecar, scale, words) of random profiles quantized as one matrix."""
+    z, w = _profiles(r, lead)
+    side, scale = quantize_profiles(z.reshape(-1, FT.F_NUM), dtype)
+    return side.reshape(z.shape), scale, w
+
+
+@pytest.mark.parametrize("q,n,t,d", [(2, 64, 10, 4), (5, 300, 50, 5), (3, 17, 13, 6)])
+@pytest.mark.parametrize("dtype", ["int8", "fp16"])
+def test_fused_score_q_shared_matches_pallas(dtype, q, n, t, d):
+    r = np.random.default_rng(q * 1000 + n)
+    zq, wq = _profiles(r, (q,))
+    zc, scale, wc = _quantized(r, (n,), dtype)
+    g = _gbdt(t, d, seed=t)
+    want = fused_score_q_pallas(*map(jnp.asarray, (zq, wq, zc, scale, wc)),
+                                *map(jnp.asarray, g[:3]), base=g[3], block_q=4,
+                                block_n=128, interpret=True)
+    args = (torch.from_numpy(zq), hashes_to_torch(wq, "cpu"), torch.from_numpy(zc),
+            torch.from_numpy(scale), hashes_to_torch(wc, "cpu"))
+    got = ops.fused_score_q(*args, _torch_gbdt(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, ref.fused_score_q_ref(*args, *_torch_gbdt(g)))
+
+
+@pytest.mark.parametrize("q,m,t,d", [(3, 40, 50, 5), (6, 9, 10, 4)])
+@pytest.mark.parametrize("dtype", ["int8", "fp16"])
+def test_fused_score_q_gathered_matches_score_columns(dtype, q, m, t, d):
+    r = np.random.default_rng(q * 100 + m)
+    zq, wq = _profiles(r, (q,))
+    zc, scale, wc = _quantized(r, (q, m), dtype)
+    g = _gbdt(t, d, seed=d)
+    want = jstages.score_columns(jnp.asarray(zq), jnp.asarray(wq),
+                                 jax_dequantize(jnp.asarray(zc), jnp.asarray(scale)),
+                                 jnp.asarray(wc), tuple(map(jnp.asarray, g)))
+    got = ops.fused_score_q(torch.from_numpy(zq), hashes_to_torch(wq, "cpu"),
+                            torch.from_numpy(zc), torch.from_numpy(scale),
+                            hashes_to_torch(wc, "cpu"), _torch_gbdt(g))
+    assert got.shape == (q, m)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_kernel_bit_views_are_contiguous():
+    """A column slice of a numpy array (the coarse digest's sampled rows)
+    arrives with Fortran strides; the kernels' int32 views are contiguous."""
+    keys = np.arange(24, dtype=np.uint32).reshape(4, 6)[:, [0, 2, 4]]
+    t = hashes_to_torch(keys, "cpu")
+    assert not t.is_contiguous()
+    bits = to_bits(t)
+    assert bits.is_contiguous() and bits.dtype == torch.int32
+    assert torch.equal(from_bits(bits), t)
+
+
 def test_ops_refuse_a_device_without_kernel_or_plain_version():
     t = torch.zeros((2, FT.F_WORDS), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="no kernel or plain version"):
@@ -184,3 +262,47 @@ def test_lsh_probe_kernel_matches_plain(cuda, q, c, b):
     got = ops.lsh_probe(qk, ck)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.lsh_probe_ref(qk, ck))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,c,b", [(1, 1, 1), (3, 300, 16), (5, 257, 64),
+                                   (64, 2048, 64), (2, 1000, 256), (3, 100, 12),
+                                   (2, 333, 7)])
+def test_lsh_probe_gathered_kernel_matches_plain(cuda, q, c, b):
+    qk, ck = (hashes_to_torch(x, cuda) for x in _gathered_keys(q, c, b, seed=c))
+    got = ops.lsh_probe_gathered(qk, ck)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.lsh_probe_gathered_ref(qk, ck))
+
+
+@pytest.mark.gpu
+def test_lsh_probe_gathered_kernel_takes_unaligned_keys(cuda):
+    """Keys that are contiguous but not 16-byte aligned (a view at an odd
+    offset) take the kernel's one-key loads."""
+    qk, ck = (to_bits(hashes_to_torch(x, cuda)) for x in _gathered_keys(4, 300, 64, seed=9))
+    view = torch.empty(ck.numel() + 1, dtype=torch.int32, device=cuda)[1:].view(ck.shape)
+    view.copy_(ck)
+    assert view.data_ptr() % 16 != 0
+    got = lsh_probe_gathered_cuda(qk, view)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.lsh_probe_gathered_ref(from_bits(qk), from_bits(ck)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,t,d", [(1, 1, 1, 1), (5, 300, 50, 5),
+                                     (13, 1029, 13, 6), (64, 5000, 50, 5)])
+@pytest.mark.parametrize("dtype", ["int8", "fp16"])
+def test_fused_score_q_kernel_matches_plain(cuda, dtype, q, n, t, d):
+    r = np.random.default_rng(n)
+    zq, wq = _profiles(r, (q,))
+    g = _torch_gbdt(_gbdt(t, d, seed=n), cuda)
+    for lead in ((n,), (q, n)):                   # shared, then gathered
+        zc, scale, wc = _quantized(r, lead, dtype)
+        args = (torch.from_numpy(zq).to(cuda), hashes_to_torch(wq, cuda),
+                torch.from_numpy(zc).to(cuda), torch.from_numpy(scale).to(cuda),
+                hashes_to_torch(wc, cuda))
+        got = ops.fused_score_q(*args, g)
+        want = ref.fused_score_q_ref(*args, *g)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)

@@ -9,8 +9,8 @@ Phases:
 1. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once);
 2. each kernel against its plain PyTorch version at ragged small shapes;
-3. two paths at real size, through the port's own entry points, each with
-   the launch counts set to 0 just before it and read just after it:
+3. three paths at real size, through the port's own entry points, each
+   with the launch counts set to 0 just before it and read just after it:
    a. the discovery query: train the join-quality model (T=50, D=5) on the
       default lake, ingest a 100k-column x 256-row scaled lake (profiles +
       MinHash, P=128), build the LSH index (B=64 fine bands, S=16 coarse
@@ -20,13 +20,23 @@ Phases:
       profiles, the ``tiered`` plan (coarse digest scan, survivor gather,
       gathered fine probe, quantized scorer, exact float32 re-rank) and the
       quantized ``all`` scans; the plan ``mode="auto"`` picks is logged.
+   c. the model path: train the join-quality model (T=50, D=5) on the
+      JAX package's evaluation mix (``benchmarks/common.bench_model``: two
+      plain lakes and one adversarial lake, 128 label queries each), with
+      the distance tensor and the labels on the card; the two-stage scorer
+      (distance tensor, then the ensemble) for the 64 queries against the
+      100k-column profiles; the exact metric on a held-out lake.
    Each plan's ids are held against a plain pipeline over the same
    candidates (plain probes and plain scorers); the quantized top-10 must
-   overlap the float32 one by at least 0.99;
+   overlap the float32 one by at least 0.99. The model path's distances
+   must equal the plain version's, its labels lie within 1e-6 of them on
+   the same side of the training threshold, the two-stage scores match
+   the fused scorer's, and the predictions correlate with the exact
+   metric (> 0.6);
 4. each kernel at the main path's shapes and inputs: against its plain
    version, and timed with CUDA events beside its bound;
-5. one profiled batch of each plan: device time by operation and the
-   device's idle share of the batch.
+5. one profiled batch of each plan and one two-stage scorer call: device
+   time by operation and the device's idle share.
 
 It prints one ``kernels`` JSON line and, last, one ``ok`` JSON line; any
 failure raises and exits non-zero. It imports nothing of JAX.
@@ -46,23 +56,28 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import features as FT                      # noqa: E402
 from repro_torch.core.gbdt import GBDTConfig                      # noqa: E402
+from repro_torch.core import quality                              # noqa: E402
+from repro_torch.core.discovery import DiscoveryIndex, rank       # noqa: E402
 from repro_torch.core.lakegen import (LakeSpec, ScaledLakeSpec,   # noqa: E402
                                       generate_lake, generate_scaled_lake,
-                                      select_scaled_queries)
-from repro_torch.core.predictor import (gbdt_to_torch,            # noqa: E402
-                                        train_quality_model)
-from repro_torch.core.profiles import lake_profiles               # noqa: E402
+                                      select_queries, select_scaled_queries)
+from repro_torch.core.predictor import (POSITIVE_LABEL,           # noqa: E402
+                                        exact_jk, gbdt_to_torch, label_pairs,
+                                        predict_scores, train_quality_model)
+from repro_torch.core.profiles import lake_profiles, profile_lake  # noqa: E402
 from repro_torch.device import from_bits, hashes_to_torch, to_bits  # noqa: E402
 from repro_torch.exec import stages                               # noqa: E402
 from repro_torch.exec.executor import Executor                    # noqa: E402
 from repro_torch.exec.plan import Planner, PlannerConfig, QueryPlan  # noqa: E402
 from repro_torch.kernels import _build, ops, ref                  # noqa: E402
+from repro_torch.kernels.gbdt_infer import gbdt_infer_cuda        # noqa: E402
 from repro_torch.kernels.lsh_probe import (PAD_CORPUS, PAD_QUERY,  # noqa: E402
                                            lsh_probe_cuda, lsh_probe_gathered_cuda)
 from repro_torch.kernels.minhash import (make_permutations,       # noqa: E402
                                          minhash_cuda)
 from repro_torch.kernels.profile_distance import (                # noqa: E402
-    fused_score_cuda, fused_score_q_cuda, quantize_profiles)
+    fused_score_cuda, fused_score_q_cuda, profile_distance_cuda, quantize_profiles)
+from repro_torch.kernels.quality_cdf import quality_cdf_cuda      # noqa: E402
 from repro_torch.service import catalog                           # noqa: E402
 from repro_torch.service.lsh import LSHConfig, LSHIndex           # noqa: E402
 
@@ -81,11 +96,29 @@ TPU_KERNELS = {
     "lsh_probe": "src/repro/kernels/lsh_probe.py:58",
     "lsh_probe_gathered": "src/repro/kernels/lsh_probe.py:116",
     "fused_score_q": "src/repro/kernels/profile_distance.py:258",
+    "profile_distance": "src/repro/kernels/profile_distance.py:61",
+    "gbdt_infer": "src/repro/kernels/gbdt_infer.py:56",
+    "quality_cdf": "src/repro/kernels/quality_cdf.py:39",
 }
 # which path of phase 3 each kernel belongs to (its launches are read there)
 PATH_OF = {"fused_score": "discovery", "minhash": "discovery", "lsh_probe": "discovery",
-           "lsh_probe_gathered": "scale", "fused_score_q": "scale"}
+           "lsh_probe_gathered": "scale", "fused_score_q": "scale",
+           "profile_distance": "model", "gbdt_infer": "model", "quality_cdf": "model"}
 SIDE_BYTES = {"int8": 1, "fp16": 2}
+# the model path: the JAX package's evaluation lakes (benchmarks/common.py),
+# bench_lake(100), bench_lake(101) and hard_lake(102) to train on, as
+# bench_model does, and bench_lake(0) held out
+_BENCH = dict(n_domains=20, n_tables=60, row_budget=2048, rows_log_mean=6.8,
+              coverage_range=(0.5, 1.0), gran_ratio=(4, 8))
+_HARD = dict(n_domains=24, n_tables=70, row_budget=2048, rows_log_mean=6.8,
+             coverage_range=(0.6, 1.0), p_multi_gran=0.9, gran_ratio=(4, 10),
+             n_collision_groups=6, collision_frac=0.8, zipf_range=(0.2, 1.6))
+TRAIN_LAKES = (LakeSpec(**_BENCH, seed=100), LakeSpec(**_BENCH, seed=101),
+               LakeSpec(**_HARD, seed=102))
+HELD_OUT_LAKE = LakeSpec(**_BENCH, seed=0)
+N_LABEL_QUERIES, N_EXACT_QUERIES = 128, 30
+LABEL_ATOL = 1e-6       # labels vs their plain version (erff vs torch.erf)
+CORR_GATE = 0.6         # prediction vs exact metric (tests/test_discovery.py:86)
 
 
 def log(msg: str) -> None:
@@ -140,6 +173,32 @@ def lsh_probe_gathered_bound(q: int, c: int, b: int):
     """Each query's own (C', B) gathered keys and its B keys read once, the
     (Q, C') hit mask written once; a compare and an or per key."""
     return bound_ms(q * c * b * 4 + q * b * 4 + q * c * 4, 0.0, 2.0 * q * c * b)
+
+
+def profile_distance_bound(q: int, n: int):
+    """Query and corpus profiles read once, the (Q, N, F_DIST) tensor written
+    once; per pair 21 subs and abs and one divide (float32), and the 10x10
+    word compare-or, its sentinel tests and count and the first-word test
+    (int32)."""
+    n_bytes = (q + n) * (FT.F_NUM + FT.F_WORDS) * 4 + q * n * FT.F_DIST * 4
+    f32 = q * n * (2 * FT.F_NUM + 1)
+    i32 = q * n * (2 * FT.N_FREQ_WORDS ** 2 + 2 * FT.N_FREQ_WORDS + 2)
+    return bound_ms(n_bytes, f32, i32)
+
+
+def gbdt_infer_bound(n: int, f: int, t: int, d: int):
+    """Rows and trees read once, one prediction per row written once; per row
+    T·D threshold compares and T adds (float32), T·D index shifts/ors
+    (int32)."""
+    n_bytes = n * f * 4 + t * d * 8 + t * (1 << d) * 4 + n * 4
+    return bound_ms(n_bytes, n * (t * d + t), n * 2 * t * d)
+
+
+def quality_cdf_bound(n: int):
+    """J and K read once, Q written once; per pair two truncated CDFs, each
+    a subtract, two divides, an erf (~25 operations), an add, a multiply,
+    a subtract and a clamp, and the product (float32)."""
+    return bound_ms(n * 12, n * (2 * 32 + 1))
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
@@ -233,6 +292,32 @@ def check_ragged(dev) -> None:
                 torch.testing.assert_close(ops.fused_score_q(zq, wq, zc, sc, wc, g),
                                            ref.fused_score_q_ref(zq, wq, zc, sc, wc, *g),
                                            rtol=RTOL, atol=ATOL)
+    # the model path's kernels: distances and the ensemble bit for bit, the
+    # labels within LABEL_ATOL (NaN where the plain version has NaN)
+    for q, n in [(1, 1), (5, 300), (13, 1029), (9, 77)]:
+        zq, wq = _random_profiles(r, (q,), dev)
+        zc, wc = _random_profiles(r, (n,), dev)
+        if not torch.equal(ops.profile_distance(zq, wq, zc, wc),
+                           ref.profile_distance_ref(zq, wq, zc, wc)):
+            raise AssertionError(f"profile_distance differs from its plain version at {(q, n)}")
+    for n, f, t, d in [(1, FT.F_DIST, 1, 1), (1, FT.F_DIST, 13, 6), (1, FT.F_DIST, 50, 8),
+                       (1000, FT.F_DIST, 50, 5), (4099, FT.F_DIST, 13, 6),
+                       (777, 24, 50, 8), (300, 5, 1, 1)]:
+        feats, thrs, leaves, base = _random_gbdt(r, t, d, dev)
+        feats = feats % f
+        x = torch.from_numpy(r.normal(size=(n, f)).astype(np.float32)).to(dev)
+        x[::3, feats[0, 0]] = thrs[0, 0]          # features exactly at a threshold
+        g = (feats, thrs, leaves, base)
+        if not torch.equal(ops.gbdt_infer(x, g), ref.gbdt_infer_ref(x, *g)):
+            raise AssertionError(f"gbdt_infer differs from its plain version at {(n, f, t, d)}")
+    for shape in [(1,), (1000,), (7, 13), (128, 401)]:
+        j = torch.from_numpy(r.uniform(-0.1, 0.6, shape).astype(np.float32)).to(dev)
+        k = torch.from_numpy(r.uniform(-0.1, 1.1, shape).astype(np.float32)).to(dev)
+        j.view(-1)[::11] = float("nan")
+        for s in quality.STRICTNESS.values():
+            args = (j, k, quality.MU_J + s, quality.SIGMA_J, quality.MU_K, quality.SIGMA_K)
+            torch.testing.assert_close(ops.quality_cdf(*args), ref.quality_cdf_ref(*args),
+                                       rtol=0, atol=LABEL_ATOL, equal_nan=True)
     torch.cuda.synchronize()
 
 
@@ -334,6 +419,113 @@ def scale_path(run: dict, dev, reps=5) -> None:
     run_plans(run, {"tiered_int8": (executors["int8"], tiered, batch),
                     "all_int8": (executors["int8"], run["plans"]["all"], batch),
                     "all_fp16": (executors["fp16"], run["plans"]["all"], batch)}, reps)
+
+
+def model_path(run: dict, dev, reps=3) -> None:
+    """The model path: train on the evaluation mix with the distances and
+    labels on the card, score the discovery path's queries against its
+    100k-column profiles with the two-stage scorer, and compute the exact
+    metric on the held-out lake."""
+    walls = run["walls"]
+    t0 = time.perf_counter()
+    lakes = [generate_lake(spec) for spec in TRAIN_LAKES]
+    walls["model_lakes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = train_quality_model(lakes, GBDTConfig(), n_query=N_LABEL_QUERIES, device=dev)
+    walls["model_train"] = sync_wall(t0)
+    log(f"model: trained on {[lake.n_columns for lake in lakes]} columns "
+        f"({N_LABEL_QUERIES} label queries each) in {walls['model_train']:.2f} s "
+        f"(lakes generated in {walls['model_lakes']:.2f} s), T={model.gbdt.n_trees} "
+        f"D={model.gbdt.depth}, R^2 {model.train_r2:.4f}")
+
+    prof, qids = run["prof"], run["qids"]
+    t0 = time.perf_counter()
+    scores = predict_scores(model, prof, qids, device=dev)
+    first = sync_wall(t0)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        predict_scores(model, prof, qids, device=dev)
+    walls["two_stage"] = sync_wall(t0) / reps
+    log(f"two-stage scorer: ({len(qids)}, {prof.n_columns}) scores, distance tensor "
+        f"{len(qids) * prof.n_columns * FT.F_DIST * 4 / 1e6:.0f} MB, first call "
+        f"{first * 1e3:.2f} ms, steady {walls['two_stage'] * 1e3:.2f} ms")
+
+    t0 = time.perf_counter()
+    held = generate_lake(HELD_OUT_LAKE)
+    held_prof = profile_lake(held.batch, device=dev)
+    held_q = select_queries(held, N_EXACT_QUERIES)
+    j, k = (torch.from_numpy(a).to(dev) for a in exact_jk(held, held_q, device=dev))
+    exact = quality.continuous_quality(j, k, model.strictness)
+    pred = predict_scores(model, held_prof, held_q, device=dev)
+    index = DiscoveryIndex(held_prof, model, names=held.batch.names, table_ids=held.table)
+    ranked = {kk: rank(index, held_q, k=kk, device=dev) for kk in (1, 5, 10)}
+    walls["exact_metric"] = sync_wall(t0)
+    run["model_run"] = dict(model=model, lakes=lakes, scores=scores, held=held,
+                            held_q=held_q, exact=exact.cpu().numpy(), pred=pred,
+                            ranked=ranked, jk=(j, k))
+
+
+def check_model_path(run, dev) -> dict:
+    """Hold the model path against the plain versions: at each training
+    lake's label queries, the distance tensor equal and the labels within
+    LABEL_ATOL on the same side of the training threshold; the two-stage
+    scores against the fused scorer; the predictions against the exact
+    metric (correlation gate) and rank's P@k (information only)."""
+    m = run["model_run"]
+    model = m["model"]
+    s = model.strictness
+    params = (quality.MU_J + s, quality.SIGMA_J, quality.MU_K, quality.SIGMA_K)
+    label_err = 0.0
+    for i, lake in enumerate(m["lakes"]):
+        # the label queries build_training_set draws (train_quality_model's seed + i)
+        c = lake.n_columns
+        qids = np.random.default_rng(i).choice(c, size=min(N_LABEL_QUERIES, c), replace=False)
+        prof = profile_lake(lake.batch, device=dev)
+        d, y = label_pairs(lake, prof, qids, s, device=dev)
+        z = torch.from_numpy(prof.zscored.astype(np.float32)).to(dev)
+        w = hashes_to_torch(prof.words, dev)
+        qi = torch.from_numpy(qids.astype(np.int64)).to(dev)
+        if not torch.equal(d, ref.profile_distance_ref(z[qi], w[qi], z, w)):
+            raise AssertionError(f"model path, lake {i}: distances differ from the plain version")
+        j, k = (torch.from_numpy(a).to(dev) for a in exact_jk(lake, qids, device=dev))
+        y_ref = ref.quality_cdf_ref(j, k, *params)
+        err = float((y - y_ref).abs().max())
+        if not err <= LABEL_ATOL:
+            raise AssertionError(f"model path, lake {i}: labels differ by {err}")
+        if not torch.equal(y > POSITIVE_LABEL, y_ref > POSITIVE_LABEL):
+            raise AssertionError(f"model path, lake {i}: a label crosses the "
+                                 f"{POSITIVE_LABEL} selection threshold")
+        label_err = max(label_err, err)
+
+    prof, qids = run["prof"], run["qids"]
+    z = torch.from_numpy(prof.zscored.astype(np.float32)).to(dev)
+    w = hashes_to_torch(prof.words, dev)
+    qi = torch.from_numpy(qids.astype(np.int64)).to(dev)
+    fused = ops.fused_score(z[qi], w[qi], z, w, gbdt_to_torch(model.gbdt.astuple(), dev))
+    fused = fused.cpu().numpy()
+    np.testing.assert_allclose(m["scores"], fused, rtol=RTOL, atol=ATOL,
+                               err_msg="two-stage scorer vs fused scorer")
+    two_stage_err = float(np.abs(m["scores"] - fused).max())
+
+    exact, pred = m["exact"], m["pred"]
+    mask = (exact > 0.01) | (pred > 0.01)
+    corr = float(np.corrcoef(exact[mask], pred[mask])[0, 1])
+    held, held_q = m["held"], m["held_q"]
+    p_at = {}
+    for kk, (sc, ids) in m["ranked"].items():
+        valid = np.isfinite(sc)
+        sem = held.is_semantic(np.repeat(held_q, kk), ids.reshape(-1)).reshape(len(held_q), kk)
+        p_at[kk] = float((sem & valid).sum() / max(valid.sum(), 1))
+    log(f"check: model-path distances equal the plain version at the {len(m['lakes'])} "
+        f"training lakes' label queries; labels within {label_err} of it (gate "
+        f"{LABEL_ATOL}), none across {POSITIVE_LABEL}; two-stage vs fused scorer at "
+        f"{m['scores'].shape}: max |err| {two_stage_err}")
+    log(f"exact metric on the held-out lake ({held.n_columns} columns, {len(held_q)} "
+        f"queries): correlation with the prediction {corr:.4f} over {int(mask.sum())} "
+        f"pairs with signal (gate {CORR_GATE}); P@k (information only) {p_at}")
+    if not corr > CORR_GATE:
+        raise AssertionError(f"prediction vs exact metric: correlation {corr} <= {CORR_GATE}")
+    return dict(label_err=label_err, two_stage_err=two_stage_err, corr=corr, p_at=p_at)
 
 
 def _same_ranking(name, s_ref, i_ref, s, i, tol=RTOL) -> None:
@@ -542,12 +734,15 @@ def measure_kernels(run, dev, launches: dict) -> list:
     out = []
 
     def record(name, got, want, exact, k_fn, p_fn, bound, reps, plain_reps):
-        if exact:
+        """``exact``: True for bit-equality, False for the scores' RTOL/ATOL,
+        or an absolute tolerance."""
+        if exact is True:
             if not torch.equal(got, want):
                 raise AssertionError(f"{name}: kernel differs from its plain version")
             err = 0.0
         else:
-            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            tol = dict(rtol=RTOL, atol=ATOL) if exact is False else dict(rtol=0, atol=exact)
+            torch.testing.assert_close(got, want, **tol)
             err = float((got - want).abs().max())
         ms, plain_ms = time_ms(k_fn, reps, flush), time_ms(p_fn, plain_reps, flush)
         b_ms, b_by = bound
@@ -651,6 +846,50 @@ def measure_kernels(run, dev, launches: dict) -> list:
                                        t, d, num_bytes=1)
     log(f"kernel fused_score_q (gathered int8 {tuple(zsg.shape)}): {gq_ms:.4f} ms "
         f"(bound {gqb_ms:.4f} ms by {gqb_by}), plain {gq_plain:.3f} ms")
+
+    # the model path: no single PyTorch call computes any of its three
+    # functions (a gather-compare-sum, an oblivious-tree walk, a product of
+    # truncated CDFs), so library_ms stays null
+    # profile_distance at the two-stage scorer's (Q, N) against the lake
+    dist = ops.profile_distance(zq, wq, z, w)
+    out.append(record("profile_distance", dist, ref.profile_distance_ref(zq, wq, z, w), True,
+                      lambda: profile_distance_cuda(zq, wq_b, z, w_b),
+                      lambda: ref.profile_distance_ref(zq, wq, z, w),
+                      profile_distance_bound(zq.shape[0], z.shape[0]), 20, 2))
+    # gbdt_infer over that tensor's (Q·N, F_DIST) rows
+    rows = dist.view(-1, FT.F_DIST)
+    out.append(record("gbdt_infer", ops.gbdt_infer(rows, g), ref.gbdt_infer_ref(rows, *g), True,
+                      lambda: gbdt_infer_cuda(rows, f32, th, lv, g[3]),
+                      lambda: ref.gbdt_infer_ref(rows, *g),
+                      gbdt_infer_bound(rows.shape[0], FT.F_DIST, t, d), 20, 2))
+    del dist, rows
+    # quality_cdf at the labels' shape: the first training lake's label
+    # queries against the lake (the exact metric of its pairs)
+    m = run["model_run"]
+    lake = m["lakes"][0]
+    c = lake.n_columns
+    lq = np.random.default_rng(0).choice(c, size=min(N_LABEL_QUERIES, c), replace=False)
+    j, k = (torch.from_numpy(a).to(dev) for a in exact_jk(lake, lq, device=dev))
+    qp = (quality.MU_J + m["model"].strictness, quality.SIGMA_J, quality.MU_K,
+          quality.SIGMA_K, 0.0, 1.0)
+    out.append(record("quality_cdf", ops.quality_cdf(j, k, *qp),
+                      ref.quality_cdf_ref(j, k, *qp), LABEL_ATOL,
+                      lambda: quality_cdf_cuda(j, k, *qp),
+                      lambda: ref.quality_cdf_ref(j, k, *qp),
+                      quality_cdf_bound(j.numel()), 50, 10))
+    # ... and at (Q, N) = (64, 100k) (uniform J, K from a seed)
+    r = np.random.default_rng(11)
+    shape = (zq.shape[0], z.shape[0])
+    jl = torch.from_numpy(r.uniform(0, 0.5, shape).astype(np.float32)).to(dev)
+    kl = torch.from_numpy(r.uniform(0, 1, shape).astype(np.float32)).to(dev)
+    got, want = ops.quality_cdf(jl, kl, *qp), ref.quality_cdf_ref(jl, kl, *qp)
+    torch.testing.assert_close(got, want, rtol=0, atol=LABEL_ATOL)
+    l_err = float((got - want).abs().max())
+    l_ms = time_ms(lambda: quality_cdf_cuda(jl, kl, *qp), 20, flush)
+    l_plain = time_ms(lambda: ref.quality_cdf_ref(jl, kl, *qp), 5, flush)
+    lb_ms, lb_by = quality_cdf_bound(jl.numel())
+    log(f"kernel quality_cdf (at {shape}): {l_ms:.4f} ms (bound {lb_ms:.4f} ms by {lb_by}, "
+        f"{lb_ms / l_ms:.1%} of it), plain {l_plain:.3f} ms, max |err| {l_err}")
     return out
 
 
@@ -659,24 +898,31 @@ def measure_kernels(run, dev, launches: dict) -> list:
 # ---------------------------------------------------------------------------
 
 def trace_plans(run) -> None:
-    """Device time by operation over one steady batch of each plan
-    (torch.profiler), beside the batch's unprofiled steady wall."""
+    """Device time by operation over one steady batch of each plan and one
+    two-stage scorer call (torch.profiler), beside the unprofiled steady
+    wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for name, (executor, plan, args) in run["runs"].items():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
-            executor.execute(plan, *args)
+
+    def trace(name, fn, steady):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
             torch.cuda.synchronize()
         # device-side events only: a host op's own row repeats its kernels' time
         rows = sorted(((e.key[:48], e.self_device_time_total / 1e3, e.count)
-                       for e in trace.key_averages()
+                       for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                       key=lambda row: -row[1])
         busy = sum(ms for _, ms, _ in rows)
-        steady = run["steady_ms"][name]
-        log(f"trace {name}: device busy {busy:.3f} ms of a {steady:.3f} ms steady batch "
+        log(f"trace {name}: device busy {busy:.3f} ms of a {steady:.3f} ms steady call "
             f"(idle share {max(0.0, 1 - busy / steady):.1%}); by self device time: "
             + "; ".join(f"{key} {ms:.3f} ms x{n}" for key, ms, n in rows[:8]))
+
+    for name, (executor, plan, args) in run["runs"].items():
+        trace(name, lambda: executor.execute(plan, *args), run["steady_ms"][name])
+    model = run["model_run"]["model"]
+    trace("two_stage", lambda: predict_scores(model, run["prof"], run["qids"]),
+          run["walls"]["two_stage"] * 1e3)
 
 
 def counted(path: str, required, drive):
@@ -729,11 +975,14 @@ def main() -> int:
                              lambda: main_path(dev))
     _, scale = counted("scale", ("lsh_probe", "lsh_probe_gathered", "fused_score_q",
                                  "fused_score"), lambda: scale_path(run, dev))
-    counts = {"discovery": discovery, "scale": scale}
+    _, model = counted("model", ("profile_distance", "gbdt_infer", "quality_cdf"),
+                       lambda: model_path(run, dev))
+    counts = {"discovery": discovery, "scale": scale, "model": model}
     launches = {k: counts[PATH_OF[k]][k] for k in _build.KERNELS}
     t0 = time.perf_counter()
     check_main_path(run, dev)
     check_scale_path(run, dev)
+    check_model_path(run, dev)
     log(f"phase 3 check: {time.perf_counter() - t0:.2f} s")
 
     # phase 4: kernels at the main path's shapes

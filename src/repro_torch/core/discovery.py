@@ -22,6 +22,7 @@ from repro_torch.exec.plan import Planner, PlannerConfig
 class DiscoveryIndex:
     profiles: LakeProfiles
     model: JoinQualityModel
+    names: list[str] | None = None
     table_ids: np.ndarray | None = None
 
     @property
@@ -33,9 +34,13 @@ def rank(index: DiscoveryIndex, query_ids: np.ndarray, k: int = 10,
          exclude_same_table: bool = True, *, device=None):
     """Single-device ranking. Returns (scores (Q, k), column ids (Q, k)).
 
-    ``k`` may exceed the lake size; the tail is padded with -inf / -1.
+    ``k`` may exceed the lake size; the tail is padded with -inf / -1, and
+    an empty index gives all -inf / -1.
     """
     qid = np.asarray(query_ids, np.int32)
+    if index.n_columns == 0:
+        return (np.full((len(qid), k), -np.inf, np.float32),
+                np.full((len(qid), k), -1, np.int32))
     executor = Executor(index.profiles.zscored, index.profiles.words,
                         index.model.gbdt.astuple(), table_ids=index.table_ids,
                         device=device)

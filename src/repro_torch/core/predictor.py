@@ -8,6 +8,11 @@ The counterpart of ``repro.core.predictor``. The model file is the same
 ``.npz``, so a model saved by either package loads in the other; training
 labels come from the exact sketches (:func:`exact_jk`) and the trees from
 the numpy ``fit_gbdt`` shared by both packages.
+
+The model path runs on the card through three kernels: the (Q, N, F_DIST)
+distance tensor (``ops.profile_distance``), the labels
+(``quality.continuous_quality`` -> ``ops.quality_cdf``) and the two-stage
+scorer :func:`predict_scores` (distances, then ``ops.gbdt_infer``).
 """
 from __future__ import annotations
 
@@ -23,13 +28,11 @@ from repro_torch.core.lakegen import Lake
 from repro_torch.core.profiles import LakeProfiles, profile_lake
 from repro_torch.core.sketches import batch_exact_metrics
 from repro_torch.device import hashes_to_torch, resolve_device
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 
-
-def distance_features_ref(z_a, words_a, z_b, words_b):
-    """Distance vectors (Q, N, F_DIST) for queries (Q, F) against a shared
-    corpus (N, F) or per-query gathered corpora (Q, M, F)."""
-    return ref.profile_distance_ref(z_a, words_a, z_b, words_b)
+# training pairs whose label exceeds this count as positives; the zero-quality
+# mass below it is subsampled to three negatives per positive
+POSITIVE_LABEL = 0.02
 
 
 def gbdt_predict_ref(gbdt_tuple, x: torch.Tensor) -> torch.Tensor:
@@ -54,7 +57,7 @@ def pairwise_distances(profiles: LakeProfiles, query_ids: np.ndarray,
     z = torch.from_numpy(profiles.zscored.astype(np.float32)).to(device)
     w = hashes_to_torch(profiles.words, device)
     qi = torch.from_numpy(np.asarray(query_ids, np.int64)).to(device)
-    return distance_features_ref(z[qi], w[qi], z, w)
+    return ops.profile_distance(z[qi], w[qi], z, w)
 
 
 @dataclasses.dataclass
@@ -81,7 +84,12 @@ class JoinQualityModel:
 def exact_jk(lake: Lake, query_ids: np.ndarray,
              corpus_ids: np.ndarray | None = None, *, device=None):
     """Exact (J, K) for query×corpus pairs from packed sketches -> numpy."""
-    dev = resolve_device(device)
+    j, k = _exact_jk(lake, query_ids, corpus_ids, resolve_device(device))
+    return j.cpu().numpy(), k.cpu().numpy()
+
+
+def _exact_jk(lake: Lake, query_ids, corpus_ids, dev):
+    """:func:`exact_jk` as (Q, N) float32 tensors on ``dev``."""
     p = lake.packed
     cids = np.arange(lake.n_columns) if corpus_ids is None else corpus_ids
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
@@ -91,7 +99,18 @@ def exact_jk(lake: Lake, query_ids: np.ndarray,
         hashes_to_torch(p.values[q], dev), f32(p.counts[q]), i64(p.card[q]),
         i64(p.n_rows[q]), hashes_to_torch(p.values[cids], dev),
         f32(p.counts[cids]), i64(p.card[cids]), i64(p.n_rows[cids]))
-    return m["j_multi"].cpu().numpy(), m["k"].cpu().numpy()
+    return m["j_multi"], m["k"]
+
+
+def label_pairs(lake: Lake, profiles: LakeProfiles, query_ids: np.ndarray,
+                strictness: float = quality.DEFAULT_STRICTNESS, *, device=None):
+    """The training pairs of ``query_ids`` against the whole lake, on the
+    device: the (Q, N, F_DIST) distance tensor and the (Q, N) continuous
+    quality labels from the exact sketches."""
+    dev = resolve_device(device)
+    j, k = _exact_jk(lake, query_ids, None, dev)
+    return (pairwise_distances(profiles, query_ids, dev),
+            quality.continuous_quality(j, k, strictness))
 
 
 def build_training_set(lake: Lake, profiles: LakeProfiles | None = None,
@@ -104,10 +123,8 @@ def build_training_set(lake: Lake, profiles: LakeProfiles | None = None,
     profiles = profiles if profiles is not None else profile_lake(lake.batch, device=dev)
     c = lake.n_columns
     qids = rng.choice(c, size=min(n_query, c), replace=False)
-    j, k = exact_jk(lake, qids, device=dev)                  # (Q, N)
-    d = pairwise_distances(profiles, qids, dev).cpu().numpy()  # (Q, N, F_DIST)
-    y = quality.continuous_quality(torch.from_numpy(j), torch.from_numpy(k),
-                                   strictness).numpy()
+    d, y = label_pairs(lake, profiles, qids, strictness, device=dev)
+    d, y = d.cpu().numpy(), y.cpu().numpy()                  # (Q, N, F_DIST), (Q, N)
 
     # drop self pairs; subsample the huge zero-quality mass for balance
     qi = np.repeat(qids, c)
@@ -115,7 +132,7 @@ def build_training_set(lake: Lake, profiles: LakeProfiles | None = None,
     keep = qi != ci
     x = d.reshape(-1, FT.F_DIST)[keep]
     yy = y.reshape(-1)[keep]
-    pos = yy > 0.02
+    pos = yy > POSITIVE_LABEL
     neg = np.flatnonzero(~pos)
     n_neg = min(len(neg), max(1, 3 * int(pos.sum())))
     sel = np.concatenate([np.flatnonzero(pos), rng.choice(neg, size=n_neg, replace=False)])
@@ -142,3 +159,13 @@ def train_quality_model(lakes: list[Lake], cfg: GBDTConfig = GBDTConfig(),
     ss_tot = float(np.sum((y - y.mean()) ** 2)) or 1.0
     return JoinQualityModel(gbdt=params, strictness=strictness,
                             train_r2=1.0 - ss_res / ss_tot)
+
+
+def predict_scores(model: JoinQualityModel, profiles: LakeProfiles,
+                   query_ids: np.ndarray, *, device=None) -> np.ndarray:
+    """(Q, N) predicted join quality for query columns vs the lake, in two
+    stages: the materialized distance tensor, then the ensemble over its
+    (Q·N, F_DIST) rows. The counterpart of ``predict_scores_ref``."""
+    dev = resolve_device(device)
+    d = pairwise_distances(profiles, query_ids, dev)
+    return ops.gbdt_infer(d, gbdt_to_torch(model.gbdt.astuple(), dev)).cpu().numpy()

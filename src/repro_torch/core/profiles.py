@@ -43,6 +43,9 @@ class LakeProfiles:
     def zscored(self) -> np.ndarray:
         return (self.numeric - self.mean) / self.std
 
+    def nbytes(self) -> int:
+        return self.numeric.nbytes + self.words.nbytes + self.n_rows.nbytes
+
 
 def _masked_stats(x, valid, nf):
     """Per-row (min, max, mean, sd) of ``x`` over ``valid`` positions."""

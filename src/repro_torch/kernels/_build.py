@@ -31,9 +31,12 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("fused_score", "minhash", "lsh_probe", "lsh_probe_gathered",
-           "fused_score_q")
+           "fused_score_q", "profile_distance", "gbdt_infer", "quality_cdf")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+
+# dynamic shared memory a block may hold on sm_90 (227 KB)
+MAX_SMEM = 232_448
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of each kernel's entry points: name -> (argtypes, restype)
@@ -56,6 +59,16 @@ _SIGNATURES = {
     "fused_score_q": {
         "freyja_fused_score_q": ([_P] * 8 + [_F, _P, _I, _I, _LL, _I, _I, _I, _P], _I),
         "freyja_fused_score_q_smem": ([_I, _I], _LL),
+    },
+    "profile_distance": {
+        "freyja_profile_distance": ([_P] * 5 + [_I, _I, _P], _I),
+    },
+    "gbdt_infer": {
+        "freyja_gbdt_infer": ([_P] * 4 + [_F, _P, _LL, _I, _I, _I, _P], _I),
+        "freyja_gbdt_infer_smem": ([_I, _I, _I], _LL),
+    },
+    "quality_cdf": {
+        "freyja_quality_cdf": ([_P] * 3 + [_LL] + [_F] * 8 + [_P], _I),
     },
 }
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
@@ -152,6 +165,19 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _libs[name] = lib
         return lib
+
+
+def expect(op: str, t, name: str, dtype, shape) -> None:
+    """Raise unless tensor ``t`` (argument ``name`` of kernel ``op``) is a
+    contiguous CUDA tensor of ``dtype`` and ``shape``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{op}: {name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{op}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, want {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{op}: {name} must be contiguous")
 
 
 def check(name: str, err: int) -> None:

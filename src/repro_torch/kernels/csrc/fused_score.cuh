@@ -2,6 +2,11 @@
 // fused_score.cu (float32 corpus) and fused_score_q.cu (int8 or float16
 // sidecar). See fused_score.cu for the design and its bound.
 //
+// The two halves of that body are __device__ functions of their own, so the
+// standalone kernels compute the very same arithmetic: distance_features()
+// (also called by profile_distance.cu) and tree_walk() (also called by
+// gbdt_infer.cu).
+//
 // Dequantization. A float32 corpus element is read as it is. A sidecar
 // element is widened to float32 (exact for int8 and float16) and multiplied
 // by its feature's scale with __fmul_rn: the plain version rounds that
@@ -31,6 +36,54 @@ __device__ __forceinline__ float dequant(int8_t v, float s) {
 }
 __device__ __forceinline__ float dequant(__half v, float s) {
   return __fmul_rn(__half2float(v), s);
+}
+
+// The F_DIST distance features of one (query, corpus row) pair, written to
+// x[f * stride]: |zq - zc| per numeric slot (the corpus element dequantized
+// first), the top-10 word overlap as (float)count / 10.0f with IEEE division,
+// and first-word equality; the sentinel never matches.
+template <typename T>
+__device__ __forceinline__ void distance_features(
+    const float* zq, const uint32_t* wq, const T* zrow, const float* scale,
+    const uint32_t* wrow, float* x, int stride) {
+#pragma unroll
+  for (int f = 0; f < F_NUM; ++f) x[f * stride] = fabsf(zq[f] - dequant(zrow[f], scale[f]));
+
+  uint32_t cw[N_FREQ];
+#pragma unroll
+  for (int j = 0; j < N_FREQ; ++j) cw[j] = wrow[j];
+  int count = 0;
+#pragma unroll
+  for (int i = 0; i < N_FREQ; ++i) {
+    const uint32_t a = wq[i];
+    bool hit = false;
+#pragma unroll
+    for (int j = 0; j < N_FREQ; ++j) hit |= (a == cw[j]);
+    count += (hit && a != SENTINEL) ? 1 : 0;
+  }
+  x[F_NUM * stride] = (float)count / 10.0f;
+  const uint32_t fa = wq[N_FREQ];
+  x[(F_NUM + 1) * stride] = (fa == wrow[N_FREQ] && fa != SENTINEL) ? 1.0f : 0.0f;
+}
+
+// Oblivious-GBDT prediction for one feature row read as x[f * stride]:
+// base + sum over trees, in tree order with plain float adds, of
+// leaves[t][sum_l (x[feats[t][l]] >= thrs[t][l]) << l].
+__device__ __forceinline__ float tree_walk(const float* x, int stride,
+                                           const int32_t* feats, const float* thrs,
+                                           const float* leaves, float base,
+                                           int n_trees, int depth) {
+  const int n_leaves = 1 << depth;
+  float acc = base;
+  for (int t = 0; t < n_trees; ++t) {
+    int idx = 0;
+    for (int l = 0; l < depth; ++l) {
+      const int k = t * depth + l;
+      idx |= (x[feats[k] * stride] >= thrs[k]) ? (1 << l) : 0;
+    }
+    acc = acc + leaves[t * n_leaves + idx];
+  }
+  return acc;
 }
 
 template <typename T>
@@ -71,40 +124,9 @@ __global__ void fused_score_kernel(
   for (int qi = 0; qi < nq; ++qi) {
     const int q = q0 + qi;
     const long long row = (long long)q * q_stride_rows + n;
-    const T* zrow = zc + row * F_NUM;
-    const uint32_t* wrow = wc + row * F_WORDS;
-    const float* zqq = s_zq + qi * F_NUM;
-    const uint32_t* wqq = s_wq + qi * F_WORDS;
-
-#pragma unroll
-    for (int f = 0; f < F_NUM; ++f)
-      x[f * BLOCK_N] = fabsf(zqq[f] - dequant(zrow[f], s_scale[f]));
-
-    uint32_t cw[N_FREQ];
-#pragma unroll
-    for (int j = 0; j < N_FREQ; ++j) cw[j] = wrow[j];
-    int count = 0;
-#pragma unroll
-    for (int i = 0; i < N_FREQ; ++i) {
-      const uint32_t a = wqq[i];
-      bool hit = false;
-#pragma unroll
-      for (int j = 0; j < N_FREQ; ++j) hit |= (a == cw[j]);
-      count += (hit && a != SENTINEL) ? 1 : 0;
-    }
-    x[F_NUM * BLOCK_N] = (float)count / 10.0f;
-    const uint32_t fa = wqq[N_FREQ];
-    x[(F_NUM + 1) * BLOCK_N] = (fa == wrow[N_FREQ] && fa != SENTINEL) ? 1.0f : 0.0f;
-
-    float acc = base;
-    for (int t = 0; t < n_trees; ++t) {
-      int idx = 0;
-      for (int l = 0; l < depth; ++l) {
-        const int k = t * depth + l;
-        idx |= (x[s_feats[k] * BLOCK_N] >= s_thrs[k]) ? (1 << l) : 0;
-      }
-      acc = acc + s_leaves[t * n_leaves + idx];
-    }
+    distance_features(s_zq + qi * F_NUM, s_wq + qi * F_WORDS, zc + row * F_NUM, s_scale,
+                      wc + row * F_WORDS, x, BLOCK_N);
+    const float acc = tree_walk(x, BLOCK_N, s_feats, s_thrs, s_leaves, base, n_trees, depth);
     out[(long long)q * n_cols + n] = acc;
   }
 }

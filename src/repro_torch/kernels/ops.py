@@ -11,11 +11,15 @@ import torch
 
 from repro_torch.device import from_bits, to_bits
 from repro_torch.kernels import ref
+from repro_torch.kernels.gbdt_infer import gbdt_infer_cuda
 from repro_torch.kernels.lsh_probe import lsh_probe_cuda, lsh_probe_gathered_cuda
 from repro_torch.kernels.minhash import minhash_cuda
-from repro_torch.kernels.profile_distance import fused_score_cuda, fused_score_q_cuda
+from repro_torch.kernels.profile_distance import (fused_score_cuda, fused_score_q_cuda,
+                                                  profile_distance_cuda)
+from repro_torch.kernels.quality_cdf import quality_cdf_cuda
 
-__all__ = ["fused_score", "fused_score_q", "minhash", "lsh_probe", "lsh_probe_gathered"]
+__all__ = ["fused_score", "fused_score_q", "minhash", "lsh_probe", "lsh_probe_gathered",
+           "profile_distance", "gbdt_infer", "quality_cdf"]
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -71,3 +75,36 @@ def lsh_probe_gathered(qkeys, ckeys):
     if not _on_cuda(qkeys, "lsh_probe_gathered"):
         return ref.lsh_probe_gathered_ref(qkeys, ckeys)
     return lsh_probe_gathered_cuda(to_bits(qkeys), to_bits(ckeys))
+
+
+def profile_distance(zq, wq, zc, wc):
+    """(Q, N, F_DIST) f32 distance features of (Q, F) queries against a
+    shared (N, F) corpus."""
+    if not _on_cuda(zq, "profile_distance"):
+        return ref.profile_distance_ref(zq, wq, zc, wc)
+    return profile_distance_cuda(zq.contiguous(), to_bits(wq), zc.contiguous(), to_bits(wc))
+
+
+def gbdt_infer(x, gbdt_tuple):
+    """(...) f32 predictions of the ensemble ``gbdt_tuple`` = (feats, thrs,
+    leaves, base) for (..., F) f32 feature rows."""
+    feats, thrs, leaves, base = gbdt_tuple
+    if not _on_cuda(x, "gbdt_infer"):
+        return ref.gbdt_infer_ref(x, feats, thrs, leaves, base)
+    f = x.shape[-1]
+    if feats.numel():
+        lo, hi = (int(v) for v in torch.aminmax(feats))
+        if lo < 0 or hi >= f:
+            raise ValueError(f"gbdt_infer: feature ids must lie in [0, {f}), got [{lo}, {hi}]")
+    out = gbdt_infer_cuda(x.reshape(-1, f).contiguous(), feats.to(torch.int32).contiguous(),
+                          thrs.contiguous(), leaves.contiguous(), float(base))
+    return out.reshape(x.shape[:-1])
+
+
+def quality_cdf(j, k, mu_j, sigma_j, mu_k, sigma_k, lo=0.0, hi=1.0):
+    """Element-wise continuous join quality of float32 ``j`` and ``k``:
+    trunc-CDF(J; μ_J, σ_J) · trunc-CDF(K; μ_K, σ_K) on [lo, hi]."""
+    if not _on_cuda(j, "quality_cdf"):
+        return ref.quality_cdf_ref(j, k, mu_j, sigma_j, mu_k, sigma_k, lo, hi)
+    return quality_cdf_cuda(j.contiguous(), k.contiguous(), mu_j, sigma_j, mu_k, sigma_k,
+                            lo, hi)

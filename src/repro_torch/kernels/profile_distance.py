@@ -1,4 +1,11 @@
-"""Fused distance + GBDT scoring: the wrapper of ``csrc/fused_score.cu``.
+"""Profile distances and fused scoring: the wrappers of
+``csrc/profile_distance.cu``, ``csrc/fused_score.cu`` and
+``csrc/fused_score_q.cu``.
+
+:func:`profile_distance_cuda` (the port of
+``repro.kernels.profile_distance.profile_distance_pallas``) writes the
+materialized (Q, N, F_DIST) distance tensor that the model path trains on
+and the two-stage scorer feeds to ``gbdt_infer``.
 
 The port of ``repro.kernels.profile_distance.fused_score_pallas``: distance
 features (|Δz| per numeric slot, top-10 word overlap, first-word equality)
@@ -20,10 +27,6 @@ import torch
 
 from repro_torch.core import features as FT
 from repro_torch.kernels import _build
-
-# dynamic shared memory a block may hold on sm_90 (227 KB)
-_MAX_SMEM = 232_448
-
 
 PROFILE_DTYPES = ("fp32", "fp16", "int8")
 # sidecar element type -> the kernel's dtype code
@@ -97,17 +100,6 @@ def dequantize(zc, scale):
     return zc if zc.dtype == np.float32 else zc.astype(np.float32) * scale
 
 
-def _expect(op: str, t: torch.Tensor, name: str, dtype, shape) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{op}: {name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{op}: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, want {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{op}: {name} must be contiguous")
-
-
 def _launch(op: str, zq, wq_bits, zc, scale, wc_bits, feats, thrs, leaves, base: float):
     """Check the inputs of scorer ``op`` and launch it on the current stream;
     ``scale`` is None for the float32 scorer."""
@@ -116,17 +108,17 @@ def _launch(op: str, zq, wq_bits, zc, scale, wc_bits, feats, thrs, leaves, base:
     n = zc.shape[1] if gathered else zc.shape[0]
     lead = (q, n) if gathered else (n,)
     t, d = feats.shape
-    _expect(op, zq, "zq", torch.float32, (q, FT.F_NUM))
-    _expect(op, wq_bits, "wq", torch.int32, (q, FT.F_WORDS))
-    _expect(op, zc, "zc", torch.float32 if scale is None else zc.dtype, (*lead, FT.F_NUM))
+    _build.expect(op, zq, "zq", torch.float32, (q, FT.F_NUM))
+    _build.expect(op, wq_bits, "wq", torch.int32, (q, FT.F_WORDS))
+    _build.expect(op, zc, "zc", torch.float32 if scale is None else zc.dtype, (*lead, FT.F_NUM))
     if scale is not None:
-        _expect(op, scale, "scale", torch.float32, (FT.F_NUM,))
-    _expect(op, wc_bits, "wc", torch.int32, (*lead, FT.F_WORDS))
-    _expect(op, feats, "feats", torch.int32, (t, d))
-    _expect(op, thrs, "thrs", torch.float32, (t, d))
-    _expect(op, leaves, "leaves", torch.float32, (t, 1 << d))
+        _build.expect(op, scale, "scale", torch.float32, (FT.F_NUM,))
+    _build.expect(op, wc_bits, "wc", torch.int32, (*lead, FT.F_WORDS))
+    _build.expect(op, feats, "feats", torch.int32, (t, d))
+    _build.expect(op, thrs, "thrs", torch.float32, (t, d))
+    _build.expect(op, leaves, "leaves", torch.float32, (t, 1 << d))
     lib = _build.library(op)
-    if getattr(lib, f"freyja_{op}_smem")(t, d) > _MAX_SMEM:
+    if getattr(lib, f"freyja_{op}_smem")(t, d) > _build.MAX_SMEM:
         raise ValueError(f"{op}: a {t}x{d} ensemble does not fit in shared memory")
     out = torch.empty((q, n), dtype=torch.float32, device=zq.device)
     if q == 0 or n == 0:
@@ -163,3 +155,25 @@ def fused_score_q_cuda(zq, wq_bits, zc, scale, wc_bits, feats, thrs, leaves,
         raise ValueError(f"fused_score_q: zc must be int8 or float16, got {zc.dtype}")
     return _launch("fused_score_q", zq, wq_bits, zc, scale, wc_bits, feats, thrs,
                    leaves, base)
+
+
+def profile_distance_cuda(zq, wq_bits, zc, wc_bits):
+    """Launch the distance kernel. ``zq`` (Q, F_NUM) f32 and ``wq_bits``
+    (Q, F_WORDS) int32 bit-views against a shared corpus ``zc`` (N, F_NUM)
+    / ``wc_bits`` (N, F_WORDS) -> (Q, N, F_DIST) f32."""
+    op = "profile_distance"
+    q, n = zq.shape[0], zc.shape[0]
+    _build.expect(op, zq, "zq", torch.float32, (q, FT.F_NUM))
+    _build.expect(op, wq_bits, "wq", torch.int32, (q, FT.F_WORDS))
+    _build.expect(op, zc, "zc", torch.float32, (n, FT.F_NUM))
+    _build.expect(op, wc_bits, "wc", torch.int32, (n, FT.F_WORDS))
+    out = torch.empty((q, n, FT.F_DIST), dtype=torch.float32, device=zq.device)
+    if q == 0 or n == 0:
+        return out
+    lib = _build.library(op)
+    stream = torch.cuda.current_stream(zq.device).cuda_stream
+    err = lib.freyja_profile_distance(zq.data_ptr(), wq_bits.data_ptr(), zc.data_ptr(),
+                                      wc_bits.data_ptr(), out.data_ptr(), q, n, stream)
+    _build.check(op, err)
+    _build.count_launch(op)
+    return out

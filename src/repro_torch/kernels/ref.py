@@ -10,6 +10,9 @@ holding uint32 values (see ``repro_torch.device``).
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from repro_torch.core import features as FT
@@ -17,6 +20,7 @@ from repro_torch.device import U32_MASK
 
 # elements of the (C, rows, P) hash intermediate one minhash step may hold
 _MINHASH_ELEMS = 1 << 24
+_SQRT2 = float(np.float32(math.sqrt(2.0)))
 
 
 def gbdt_infer_ref(x, feats, thrs, leaves, base):
@@ -47,7 +51,10 @@ def profile_distance_ref(z_q, w_q, z_c, w_c):
     tb = w_c[:, :, None, :FT.N_FREQ_WORDS]                         # (.,N,1,10)
     eq = (ta == tb) & (ta != FT.HASH_SENTINEL)
     count = eq.any(-1).sum(-1)
-    overlap = count.to(torch.float32) / float(FT.N_FREQ_WORDS)
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal, and 9 * fl(1/10) is not fl(9/10)
+    ten = torch.tensor(float(FT.N_FREQ_WORDS), device=count.device)
+    overlap = count.to(torch.float32) / ten
     fa = w_q[:, None, FT.FIRST_WORD]
     fb = w_c[:, :, FT.FIRST_WORD]
     first = ((fa == fb) & (fa != FT.HASH_SENTINEL)).to(torch.float32)
@@ -102,3 +109,33 @@ def lsh_probe_gathered_ref(qkeys, ckeys):
     (Q, C', B) -> (Q, C') int32: 1 iff row c' of query q shares a key with
     the query in any band."""
     return (qkeys[:, None, :] == ckeys).any(-1).to(torch.int32)
+
+
+def standardized_bounds(mu: float, sigma: float, lo: float, hi: float):
+    """(lo − μ)/σ and (hi − μ)/σ, computed in double and rounded to float32:
+    the points where the truncated CDF evaluates Φ at its bounds."""
+    return float(np.float32((lo - mu) / sigma)), float(np.float32((hi - mu) / sigma))
+
+
+def _phi(x):
+    """Standard normal CDF 0.5·(1 + erf(x/√2)) in float32. Every constant is
+    a tensor on ``x``'s device: a Python scalar divisor would make the CUDA
+    division a multiply by its reciprocal, which the kernel does not do."""
+    return 0.5 * (1.0 + torch.erf(x / torch.tensor(_SQRT2, device=x.device)))
+
+
+def truncated_cdf_ref(x, mu: float, sigma: float, lo: float = 0.0, hi: float = 1.0):
+    """CDF of N(μ, σ²) truncated to [lo, hi] at float32 ``x``, clamped to
+    [0, 1] (NaN passes through)."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)
+    a, b = standardized_bounds(mu, sigma, lo, hi)
+    phi_lo = _phi(f32(a))
+    num = _phi((x - f32(mu)) / f32(sigma)) - phi_lo
+    return torch.clamp(num / (_phi(f32(b)) - phi_lo), 0.0, 1.0)
+
+
+def quality_cdf_ref(j, k, mu_j: float, sigma_j: float, mu_k: float, sigma_k: float,
+                    lo: float = 0.0, hi: float = 1.0):
+    """Continuous join quality, element-wise: trunc-CDF(J; μ_J, σ_J) ·
+    trunc-CDF(K; μ_K, σ_K) on [lo, hi] (μ_J carries the strictness)."""
+    return truncated_cdf_ref(j, mu_j, sigma_j, lo, hi) * truncated_cdf_ref(k, mu_k, sigma_k, lo, hi)

@@ -12,10 +12,12 @@ import torch
 from repro_torch.core.discovery import DiscoveryIndex, rank
 from repro_torch.core.gbdt import GBDTParams
 from repro_torch.core.lakegen import LakeSpec, generate_lake
-from repro_torch.core.predictor import JoinQualityModel, train_quality_model
+from repro_torch.core.predictor import (JoinQualityModel, predict_scores,
+                                        train_quality_model)
 from repro_torch.core.profiles import profile_lake
 from repro_torch.exec.executor import Executor
 from repro_torch.kernels import _build
+from repro_torch.launch import discover
 from repro_torch.service.catalog import profile_and_sign
 from repro_torch.service.lsh import LSHConfig, LSHIndex
 
@@ -34,11 +36,14 @@ assert not _build._libs, "a kernel was built at import"
 print(" ".join(names))
 """
 
-# modules of the scale path that the walk must reach
+# modules of the scale and model paths that the walk must reach
 _SCALE_MODULES = {"repro_torch.launch", "repro_torch.launch.costmodel",
                   "repro_torch.exec.plan", "repro_torch.exec.stages",
                   "repro_torch.exec.executor", "repro_torch.kernels.profile_distance",
-                  "repro_torch.kernels.lsh_probe", "repro_torch.service.lsh"}
+                  "repro_torch.kernels.lsh_probe", "repro_torch.service.lsh",
+                  "repro_torch.kernels.gbdt_infer", "repro_torch.kernels.quality_cdf",
+                  "repro_torch.core.quality", "repro_torch.core.predictor",
+                  "repro_torch.launch.discover", "repro_torch.launch.train_quality"}
 
 
 def test_port_imports_without_jax_or_repro():
@@ -57,10 +62,14 @@ def test_kernel_sources_are_keyed_by_content():
     for name, path in paths.items():
         assert path.parent == _build.BUILD_DIR and name in path.name
         assert path == _build.library_path(name)      # stable for one source
-    # both scorers include the shared body; the other kernels include nothing
+    # both scorers, the distance kernel and the ensemble include the shared
+    # body; the other kernels include nothing
     assert _build.sources("fused_score") == ["fused_score.cu", "fused_score.cuh"]
     assert _build.sources("fused_score_q") == ["fused_score.cuh", "fused_score_q.cu"]
+    assert _build.sources("profile_distance") == ["fused_score.cuh", "profile_distance.cu"]
+    assert _build.sources("gbdt_infer") == ["fused_score.cuh", "gbdt_infer.cu"]
     assert _build.sources("minhash") == ["minhash.cu"]
+    assert _build.sources("quality_cdf") == ["quality_cdf.cu"]
 
 
 def test_an_edited_header_rebuilds_every_kernel_that_includes_it(tmp_path, monkeypatch):
@@ -72,7 +81,7 @@ def test_an_edited_header_rebuilds_every_kernel_that_includes_it(tmp_path, monke
         f.write("// edited\n")
     after = {name: _build.library_path(name) for name in _build.KERNELS}
     changed = {name for name in _build.KERNELS if before[name] != after[name]}
-    assert changed == {"fused_score", "fused_score_q"}
+    assert changed == {"fused_score", "fused_score_q", "profile_distance", "gbdt_infer"}
 
 
 @pytest.fixture(scope="module")
@@ -101,6 +110,9 @@ _ENTRY_POINTS = {
             np.zeros((1, 16), np.uint32)),
     "Executor(int8)": lambda lake, prof, model: Executor(
         prof.zscored, prof.words, model.gbdt.astuple(), profile_dtype="int8"),
+    "predict_scores": lambda lake, prof, model: predict_scores(model, prof, [0]),
+    "launch.discover.main": lambda lake, prof, model: discover.main(
+        ["--tables", "3", "--domains", "3"]),
 }
 
 

@@ -306,3 +306,48 @@ def test_fused_score_q_kernel_matches_plain(cuda, dtype, q, n, t, d):
         torch.cuda.synchronize()
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n", [(1, 1), (5, 300), (13, 1029), (64, 5000)])
+def test_profile_distance_kernel_matches_plain(cuda, q, n):
+    r = np.random.default_rng(q + n)
+    zq, wq = _profiles(r, (q,))
+    zc, wc = _profiles(r, (n,))
+    args = _torch_inputs(zq, wq, zc, wc, cuda)
+    got = ops.profile_distance(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.profile_distance_ref(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f", [(1, 23), (7, 23), (1000, 24), (5000, 23), (777, 5)])
+@pytest.mark.parametrize("t,d", [(1, 1), (13, 6), (50, 5), (50, 8)])
+def test_gbdt_infer_kernel_matches_plain(cuda, n, f, t, d):
+    r = np.random.default_rng(n * f + t)
+    x = r.normal(size=(n, f)).astype(np.float32)
+    feats, thrs, leaves, base = _gbdt(t, d, seed=t)
+    feats %= f
+    x[::3, feats[0, 0]] = thrs[0, 0]                 # features exactly at a threshold
+    g = _torch_gbdt((feats, thrs, leaves, base), cuda)
+    xt = torch.from_numpy(x).to(cuda)
+    got = ops.gbdt_infer(xt, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.gbdt_infer_ref(xt, *g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1,), (1000,), (7, 13), (128, 401)])
+@pytest.mark.parametrize("s", [0.0, 0.25, 0.5])
+def test_quality_cdf_kernel_matches_plain(cuda, shape, s):
+    r = np.random.default_rng(len(shape) + int(4 * s))
+    j = r.uniform(-0.1, 0.6, shape).astype(np.float32)
+    k = r.uniform(-0.1, 1.1, shape).astype(np.float32)
+    j.reshape(-1)[::11] = np.nan
+    args = (torch.from_numpy(j).to(cuda), torch.from_numpy(k).to(cuda),
+            0.0 + s, 0.19, 0.44, 0.28, 0.0, 1.0)
+    got = ops.quality_cdf(*args)
+    want = ref.quality_cdf_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6, equal_nan=True)

@@ -105,6 +105,10 @@ PATH_OF = {"fused_score": "discovery", "minhash": "discovery", "lsh_probe": "dis
            "lsh_probe_gathered": "scale", "fused_score_q": "scale",
            "profile_distance": "model", "gbdt_infer": "model", "quality_cdf": "model"}
 SIDE_BYTES = {"int8": 1, "fp16": 2}
+# the scorers' times before their redesign, at the phase-4 shapes (PERF.md's
+# kernel table: NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+EARLIER_SCORER_MS = {"fused_score": 1.1280, "fused_score gathered": 0.1154,
+                     "fused_score_q": 1.1161, "fused_score_q gathered": 0.1010}
 # the model path: the JAX package's evaluation lakes (benchmarks/common.py),
 # bench_lake(100), bench_lake(101) and hard_lake(102) to train on, as
 # bench_model does, and bench_lake(0) held out
@@ -241,6 +245,53 @@ def _random_profiles(r, lead, dev):
     return z, hashes_to_torch(w, dev)
 
 
+def _adversarial(r, q, lead, t, d, dtype, dev):
+    """Inputs and an ensemble that punish a flipped leaf: thresholds taken
+    from the pairs' own feature values (0.0, -0.0, the overlap steps k/10,
+    1.0, exact |dz| values, |dz| = 0 planted), one (feature, threshold)
+    repeated across trees, a query with NaN numeric slots. Returns (zq, wq,
+    sidecar, scale, wc, gbdt) on ``dev``; the sidecar is float32 for fp32."""
+    zq = r.normal(size=(q, FT.F_NUM)).astype(np.float32)
+    z = r.normal(size=(*lead, FT.F_NUM)).astype(np.float32)
+    z.reshape(-1, FT.F_NUM)[::5, 3] = zq[0, 3]
+    zq[-1, ::4] = np.nan
+    wq = r.integers(0, 12, (q, FT.F_WORDS)).astype(np.uint32)
+    wc = r.integers(0, 12, (*lead, FT.F_WORDS)).astype(np.uint32)
+    wq[::2, 5:8] = FT.HASH_SENTINEL
+    wc.reshape(-1, FT.F_WORDS)[::3, :4] = FT.HASH_SENTINEL
+    side, scale = (z, np.ones(FT.F_NUM, np.float32)) if dtype == "fp32" else \
+        quantize_profiles(z.reshape(-1, FT.F_NUM), dtype)
+    side = side.reshape(z.shape)
+    zq_t, wq_t, wc_t = torch.from_numpy(zq).to(dev), hashes_to_torch(wq, dev), hashes_to_torch(wc, dev)
+    zc_t, sc_t = torch.from_numpy(side).to(dev), torch.from_numpy(scale).to(dev)
+    zf = zc_t if dtype == "fp32" else zc_t.to(torch.float32) * sc_t
+    x = ref.profile_distance_ref(zq_t, wq_t, zf, wc_t).reshape(-1, FT.F_DIST).cpu().numpy()
+    steps = np.arange(11, dtype=np.float32) / np.float32(10)
+    feats = r.integers(0, FT.F_DIST, (t, d)).astype(np.int32)
+    thrs = np.empty((t, d), np.float32)
+    for k, f in np.ndenumerate(feats):
+        if f == FT.F_NUM:
+            pool = steps
+        elif f == FT.F_NUM + 1:
+            pool = np.float32([0.0, -0.0, 1.0])
+        else:
+            vals = x[:, f][np.isfinite(x[:, f])]
+            pool = np.concatenate([np.float32([0.0, -0.0]), r.choice(vals, 4)])
+        thrs[k] = r.choice(pool)
+    feats[1::3, 0], thrs[1::3, 0] = feats[0, 0], thrs[0, 0]
+    g = (torch.from_numpy(feats).to(dev), torch.from_numpy(thrs).to(dev),
+         torch.from_numpy(r.normal(size=(t, 1 << d)).astype(np.float32)).to(dev),
+         float(np.float32(r.normal())))
+    return zq_t, wq_t, zc_t, sc_t, wc_t, g
+
+
+def _scorer_equal(name, got, want, shape) -> None:
+    if not torch.equal(got, want):
+        err = float((got - want).abs().max())
+        raise AssertionError(f"{name} differs from its plain version at {shape}: "
+                             f"max |err| {err}, {int((got != want).sum())} scores")
+
+
 def check_ragged(dev) -> None:
     r = np.random.default_rng(0)
     for q, n, t, d in [(1, 1, 1, 1), (5, 300, 50, 5), (13, 1029, 13, 6), (9, 77, 50, 8)]:
@@ -248,8 +299,8 @@ def check_ragged(dev) -> None:
         g = _random_gbdt(r, t, d, dev)
         for lead in ((n,), (q, n)):
             zc, wc = _random_profiles(r, lead, dev)
-            got, want = ops.fused_score(zq, wq, zc, wc, g), ref.fused_score_ref(zq, wq, zc, wc, *g)
-            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            _scorer_equal("fused_score", ops.fused_score(zq, wq, zc, wc, g),
+                          ref.fused_score_ref(zq, wq, zc, wc, *g), (q, lead, t, d))
     for c, rows, p in [(1, 1, 1), (7, 700, 64), (33, 256, 128), (9, 1000, 300)]:
         vals = r.integers(0, 2 ** 32 - 1, (c, rows), dtype=np.uint64).astype(np.uint32)
         vals[0, rows // 2:] = FT.HASH_SENTINEL
@@ -289,9 +340,21 @@ def check_ragged(dev) -> None:
                 side, scale = quantize_profiles(z.cpu().numpy().reshape(-1, FT.F_NUM), dtype)
                 zc = torch.from_numpy(side.reshape(z.shape)).to(dev)
                 sc = torch.from_numpy(scale).to(dev)
-                torch.testing.assert_close(ops.fused_score_q(zq, wq, zc, sc, wc, g),
-                                           ref.fused_score_q_ref(zq, wq, zc, sc, wc, *g),
-                                           rtol=RTOL, atol=ATOL)
+                _scorer_equal(f"fused_score_q ({dtype})", ops.fused_score_q(zq, wq, zc, sc, wc, g),
+                              ref.fused_score_q_ref(zq, wq, zc, sc, wc, *g), (q, lead, t, d))
+    # ensembles that punish a flipped leaf, both geometries, every dtype;
+    # (1000, 5) and (2, 15) are scored in chunks of trees
+    for dtype in ("fp32", *SIDE_BYTES):
+        for q, lead, t, d in [(5, (300,), 50, 5), (4, (4, 77), 50, 8), (3, (40,), 13, 6),
+                              (5, (5, 300), 50, 5), (3, (3, 1029), 13, 6),
+                              (3, (300,), 1000, 5), (3, (3, 200), 2, 15)]:
+            zq, wq, zc, sc, wc, g = _adversarial(r, q, lead, t, d, dtype, dev)
+            if dtype == "fp32":
+                got, want = ops.fused_score(zq, wq, zc, wc, g), ref.fused_score_ref(zq, wq, zc, wc, *g)
+            else:
+                got = ops.fused_score_q(zq, wq, zc, sc, wc, g)
+                want = ref.fused_score_q_ref(zq, wq, zc, sc, wc, *g)
+            _scorer_equal(f"adversarial {dtype}", got, want, (q, lead, t, d))
     # the model path's kernels: distances and the ensemble bit for bit, the
     # labels within LABEL_ATOL (NaN where the plain version has NaN)
     for q, n in [(1, 1), (5, 300), (13, 1029), (9, 77)]:
@@ -733,16 +796,18 @@ def measure_kernels(run, dev, launches: dict) -> list:
     w = hashes_to_torch(prof.words, dev)
     out = []
 
+    def earlier(name):
+        return f", before the redesign {EARLIER_SCORER_MS[name]:.4f} ms" \
+            if name in EARLIER_SCORER_MS else ""
+
     def record(name, got, want, exact, k_fn, p_fn, bound, reps, plain_reps):
-        """``exact``: True for bit-equality, False for the scores' RTOL/ATOL,
-        or an absolute tolerance."""
+        """``exact``: True for bit-equality, or an absolute tolerance."""
         if exact is True:
             if not torch.equal(got, want):
                 raise AssertionError(f"{name}: kernel differs from its plain version")
             err = 0.0
         else:
-            tol = dict(rtol=RTOL, atol=ATOL) if exact is False else dict(rtol=0, atol=exact)
-            torch.testing.assert_close(got, want, **tol)
+            torch.testing.assert_close(got, want, rtol=0, atol=exact)
             err = float((got - want).abs().max())
         ms, plain_ms = time_ms(k_fn, reps, flush), time_ms(p_fn, plain_reps, flush)
         b_ms, b_by = bound
@@ -752,7 +817,7 @@ def measure_kernels(run, dev, launches: dict) -> list:
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": None}
         log(f"kernel {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-            f"{b_ms / ms:.1%} of it), plain {plain_ms:.3f} ms, max |err| {err}")
+            f"{b_ms / ms:.1%} of it{earlier(name)}), plain {plain_ms:.3f} ms, max |err| {err}")
         return row
 
     # fused_score, shared corpus: the full scan's (Q, N) geometry
@@ -760,7 +825,7 @@ def measure_kernels(run, dev, launches: dict) -> list:
     f32, th, lv = g[0].contiguous(), g[1].contiguous(), g[2].contiguous()
     got = ops.fused_score(zq, wq, z, w, g)
     want = ref.fused_score_ref(zq, wq, z, w, *g)
-    out.append(record("fused_score", got, want, False,
+    out.append(record("fused_score", got, want, True,
                       lambda: fused_score_cuda(zq, wq_b, z, w_b, f32, th, lv, g[3]),
                       lambda: ref.fused_score_ref(zq, wq, z, w, *g),
                       fused_score_bound(zq.shape[0], z.shape[0], zq.shape[0] * z.shape[0], t, d), 20, 3))
@@ -777,14 +842,14 @@ def measure_kernels(run, dev, launches: dict) -> list:
     pos, _ = stages.gather_candidates(prio, hybrid.budget)
     zg, wg = z[pos].contiguous(), w[pos].contiguous()
     wg_b = to_bits(wg)
-    got = ops.fused_score(zq, wq, zg, wg, g)
-    torch.testing.assert_close(got, ref.fused_score_ref(zq, wq, zg, wg, *g),
-                               rtol=RTOL, atol=ATOL)
+    _scorer_equal("fused_score (gathered)", ops.fused_score(zq, wq, zg, wg, g),
+                  ref.fused_score_ref(zq, wq, zg, wg, *g), tuple(zg.shape))
     g_ms = time_ms(lambda: fused_score_cuda(zq, wq_b, zg, wg_b, f32, th, lv, g[3]), 20, flush)
     g_plain = time_ms(lambda: ref.fused_score_ref(zq, wq, zg, wg, *g), 3, flush)
     gb_ms, gb_by = fused_score_bound(zq.shape[0], pos.numel(), pos.numel(), t, d)
     log(f"kernel fused_score (gathered {tuple(zg.shape)}): {g_ms:.4f} ms "
-        f"(bound {gb_ms:.4f} ms by {gb_by}), plain {g_plain:.3f} ms")
+        f"(bound {gb_ms:.4f} ms by {gb_by}{earlier('fused_score gathered')}), "
+        f"plain {g_plain:.3f} ms, max |err| 0.0")
 
     # minhash at ingest's geometry: one chunk of profile_and_sign's column walk
     # (the scaled lake's 256 rows and 100k columns need no padding)
@@ -828,7 +893,7 @@ def measure_kernels(run, dev, launches: dict) -> list:
     side, scale = quantize_profiles(prof.zscored, "int8")
     zs, sc = torch.from_numpy(side).to(dev), torch.from_numpy(scale).to(dev)
     out.append(record("fused_score_q", ops.fused_score_q(zq, wq, zs, sc, w, g),
-                      ref.fused_score_q_ref(zq, wq, zs, sc, w, *g), False,
+                      ref.fused_score_q_ref(zq, wq, zs, sc, w, *g), True,
                       lambda: fused_score_q_cuda(zq, wq_b, zs, sc, w_b, f32, th, lv, g[3]),
                       lambda: ref.fused_score_q_ref(zq, wq, zs, sc, w, *g),
                       fused_score_bound(zq.shape[0], zs.shape[0], zq.shape[0] * zs.shape[0],
@@ -836,16 +901,29 @@ def measure_kernels(run, dev, launches: dict) -> list:
     # ... gathered: the tiered plan's (Q, M, F) scored candidates
     zsg, wsg = zs[tr["gpos"]].contiguous(), w[tr["gpos"]].contiguous()
     wsg_b = to_bits(wsg)
-    got = ops.fused_score_q(zq, wq, zsg, sc, wsg, g)
-    torch.testing.assert_close(got, ref.fused_score_q_ref(zq, wq, zsg, sc, wsg, *g),
-                               rtol=RTOL, atol=ATOL)
+    _scorer_equal("fused_score_q (gathered)", ops.fused_score_q(zq, wq, zsg, sc, wsg, g),
+                  ref.fused_score_q_ref(zq, wq, zsg, sc, wsg, *g), tuple(zsg.shape))
     gq_ms = time_ms(lambda: fused_score_q_cuda(zq, wq_b, zsg, sc, wsg_b, f32, th, lv, g[3]),
                     20, flush)
     gq_plain = time_ms(lambda: ref.fused_score_q_ref(zq, wq, zsg, sc, wsg, *g), 3, flush)
     gqb_ms, gqb_by = fused_score_bound(zq.shape[0], tr["gpos"].numel(), tr["gpos"].numel(),
                                        t, d, num_bytes=1)
     log(f"kernel fused_score_q (gathered int8 {tuple(zsg.shape)}): {gq_ms:.4f} ms "
-        f"(bound {gqb_ms:.4f} ms by {gqb_by}), plain {gq_plain:.3f} ms")
+        f"(bound {gqb_ms:.4f} ms by {gqb_by}{earlier('fused_score_q gathered')}), "
+        f"plain {gq_plain:.3f} ms, max |err| 0.0")
+    # ... and over the fp16 sidecar, shared and gathered
+    side, scale = quantize_profiles(prof.zscored, "fp16")
+    zh, sh = torch.from_numpy(side).to(dev), torch.from_numpy(scale).to(dev)
+    for geo, zc, wc in (("shared", zh, w), ("gathered", zh[tr["gpos"]].contiguous(), wsg)):
+        _scorer_equal(f"fused_score_q (fp16 {geo})", ops.fused_score_q(zq, wq, zc, sh, wc, g),
+                      ref.fused_score_q_ref(zq, wq, zc, sh, wc, *g), tuple(zc.shape))
+        wc_b = to_bits(wc)
+        h_ms = time_ms(lambda: fused_score_q_cuda(zq, wq_b, zc, sh, wc_b, f32, th, lv, g[3]),
+                       20, flush)
+        h_bound, h_by = fused_score_bound(zq.shape[0], zc.numel() // FT.F_NUM,
+                                          zq.shape[0] * zc.shape[-2], t, d, num_bytes=2)
+        log(f"kernel fused_score_q (fp16 {geo} {tuple(zc.shape)}): {h_ms:.4f} ms "
+            f"(bound {h_bound:.4f} ms by {h_by}), max |err| 0.0")
 
     # the model path: no single PyTorch call computes any of its three
     # functions (a gather-compare-sum, an oblivious-tree walk, a product of

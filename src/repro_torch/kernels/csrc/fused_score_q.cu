@@ -9,19 +9,22 @@
 //   matrix (25.6 MB).
 // Design: the body of fused_score.cu (fused_score.cuh) with the corpus
 //   element type templated, int8_t (scale = abs-max / 127 per feature) or
-//   __half (scale 1). The 21 scales sit in shared memory beside the tree
-//   tables, and each element is dequantized where it is read, as
-//   float(v) * scale[f] with one IEEE multiply, which is the plain version's
-//   arithmetic: the kernel's scores equal fused_score_q_ref's. Shared (N, F)
-//   and gathered (Q, M, F) sidecars are served by the query stride, as in
-//   the float32 kernel.
+//   __half (scale 1). A tile's sidecar rows (21 or 42 bytes, at any byte
+//   offset) are copied as the 4-byte words that hold them; each thread
+//   funnel-shifts its row out of those words, widens each element and
+//   dequantizes it once per tile as float(v) * scale[f] with one IEEE
+//   multiply (__fmul_rn), which is the plain version's arithmetic: the
+//   kernel's scores equal fused_score_q_ref's. Shared (N, F) and gathered
+//   (Q, M, F) sidecars are served by the query stride, as in the float32
+//   kernel.
 
 #include "fused_score.cuh"
 
 extern "C" {
 
+// As freyja_fused_score_smem, for the wider (float16) sidecar.
 long long freyja_fused_score_q_smem(int n_trees, int depth) {
-  return (long long)freyja_fused::smem_bytes(n_trees, depth);
+  return freyja_fused::launch_smem<__half>(n_trees, depth);
 }
 
 // As freyja_fused_score, with zc an int8 (dtype 0) or float16 (dtype 1)

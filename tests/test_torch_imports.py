@@ -43,7 +43,8 @@ _SCALE_MODULES = {"repro_torch.launch", "repro_torch.launch.costmodel",
                   "repro_torch.kernels.lsh_probe", "repro_torch.service.lsh",
                   "repro_torch.kernels.gbdt_infer", "repro_torch.kernels.quality_cdf",
                   "repro_torch.core.quality", "repro_torch.core.predictor",
-                  "repro_torch.launch.discover", "repro_torch.launch.train_quality"}
+                  "repro_torch.launch.discover", "repro_torch.launch.train_quality",
+                  "repro_torch.launch.bench_scorer"}
 
 
 def test_port_imports_without_jax_or_repro():

@@ -12,6 +12,7 @@ from repro.kernels.minhash import make_permutations as jax_make_permutations
 from repro.kernels.minhash import minhash_pallas
 from repro.kernels.profile_distance import dequantize as jax_dequantize
 from repro.kernels.profile_distance import fused_score_pallas, fused_score_q_pallas
+from repro.kernels import ref as jax_ref
 from repro_torch.core import features as FT
 from repro_torch.device import from_bits, hashes_to_numpy, hashes_to_torch, to_bits
 from repro_torch.kernels import ops, ref
@@ -211,6 +212,78 @@ def test_ops_refuse_a_device_without_kernel_or_plain_version():
         ops.lsh_probe(t, t)
 
 
+def _adversarial(seed, q, lead, t, d, dtype):
+    """Inputs and an ensemble that punish a flipped leaf: thresholds taken
+    from the pairs' own feature values (0.0, -0.0, the overlap steps k/10,
+    1.0, exact |dz| values, |dz| = 0 planted), one (feature, threshold)
+    repeated across trees, a query with NaN numeric slots. Returns (zq, wq,
+    sidecar, scale, wc, gbdt); the sidecar is float32 for ``fp32``."""
+    r = np.random.default_rng(seed)
+    zq, wq = _profiles(r, (q,), n_words=12)
+    zc, wc = _profiles(r, lead, n_words=12)
+    wq[::2, 5:8] = FT.HASH_SENTINEL
+    zc.reshape(-1, FT.F_NUM)[::5, 3] = zq[0, 3]
+    zq[-1, ::4] = np.nan
+    side, scale = quantize_profiles(zc.reshape(-1, FT.F_NUM), dtype)
+    side = side.reshape(zc.shape)
+    x = ref.profile_distance_ref(*_torch_inputs(zq, wq, _dequantized(side, scale), wc))
+    x = x.numpy().reshape(-1, FT.F_DIST)
+    steps = np.arange(11, dtype=np.float32) / np.float32(10)
+    feats = r.integers(0, FT.F_DIST, (t, d)).astype(np.int32)
+    thrs = np.empty((t, d), np.float32)
+    for k, f in np.ndenumerate(feats):
+        vals = x[:, f][np.isfinite(x[:, f])]
+        if f == FT.F_NUM:
+            pool = steps
+        elif f == FT.F_NUM + 1:
+            pool = np.float32([0.0, -0.0, 1.0])
+        else:
+            pool = np.concatenate([np.float32([0.0, -0.0]), r.choice(vals, 4)])
+        thrs[k] = r.choice(pool)
+    feats[1::3, 0], thrs[1::3, 0] = feats[0, 0], thrs[0, 0]
+    leaves = r.normal(size=(t, 2 ** d)).astype(np.float32)
+    return zq, wq, side, scale, wc, (feats, thrs, leaves, float(np.float32(r.normal())))
+
+
+def _dequantized(side, scale):
+    return side if side.dtype == np.float32 else side.astype(np.float32) * scale
+
+
+def _plain_scores(zq, wq, side, scale, wc, g, device="cpu"):
+    """The plain scorer of the sidecar's dtype (fused_score_ref for float32)."""
+    zq_t, wq_t, zc_t, wc_t = _torch_inputs(zq, wq, side, wc, device)
+    if side.dtype == np.float32:
+        return ref.fused_score_ref(zq_t, wq_t, zc_t, wc_t, *_torch_gbdt(g, device))
+    return ref.fused_score_q_ref(zq_t, wq_t, zc_t, torch.from_numpy(scale).to(device), wc_t,
+                                 *_torch_gbdt(g, device))
+
+
+# (Q, corpus lead shape, T, D): shared and gathered, (50, 8) among them
+ADVERSARIAL = [(5, (300,), 50, 5), (4, (4, 77), 50, 8), (3, (40,), 13, 6)]
+
+
+@pytest.mark.parametrize("q,lead,t,d", ADVERSARIAL)
+@pytest.mark.parametrize("dtype", ["fp32", "int8", "fp16"])
+def test_plain_scorers_match_jax_oracle_on_adversarial_ensembles(dtype, q, lead, t, d):
+    zq, wq, side, scale, wc, g = _adversarial(t * d + len(lead), q, lead, t, d, dtype)
+    got = _plain_scores(zq, wq, side, scale, wc, g).numpy()
+    zf = _dequantized(side, scale)
+    oracle = lambda zq_, wq_, zc_, wc_, thrs: np.asarray(jax_ref.fused_score_ref(
+        *map(jnp.asarray, (zq_, wq_, zc_, wc_, g[0], thrs, g[2])), g[3]))
+    if len(lead) == 1:
+        want = oracle(zq, wq, zf, wc, g[1])
+    else:
+        want = np.concatenate([oracle(zq[i:i + 1], wq[i:i + 1], zf[i], wc[i], g[1])
+                               for i in range(q)])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert np.isnan(zq[-1]).any() and np.isfinite(got).all()
+    # the thresholds sit on feature values: one ulp up flips leaves by more
+    # than the tolerance
+    g_up = (g[0], np.nextafter(g[1], np.float32(np.inf)), g[2], g[3])
+    flipped = _plain_scores(zq, wq, side, scale, wc, g_up).numpy()
+    assert not np.allclose(flipped, got, rtol=RTOL, atol=ATOL)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels vs their plain versions (on a card only)
 # ---------------------------------------------------------------------------
@@ -235,8 +308,7 @@ def test_fused_score_kernel_matches_plain(cuda, q, n, t, d):
         got = ops.fused_score(*args, g)
         want = ref.fused_score_ref(*args, *g)
         torch.cuda.synchronize()
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                                   rtol=RTOL, atol=ATOL)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -304,8 +376,42 @@ def test_fused_score_q_kernel_matches_plain(cuda, dtype, q, n, t, d):
         got = ops.fused_score_q(*args, g)
         want = ref.fused_score_q_ref(*args, *g)
         torch.cuda.synchronize()
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                                   rtol=RTOL, atol=ATOL)
+        assert torch.equal(got, want)
+
+
+def _kernel_scores(zq, wq, side, scale, wc, g, device):
+    """The scorer kernel of the sidecar's dtype, through ``ops``."""
+    zq_t, wq_t, zc_t, wc_t = _torch_inputs(zq, wq, side, wc, device)
+    if side.dtype == np.float32:
+        return ops.fused_score(zq_t, wq_t, zc_t, wc_t, _torch_gbdt(g, device))
+    return ops.fused_score_q(zq_t, wq_t, zc_t, torch.from_numpy(scale).to(device), wc_t,
+                             _torch_gbdt(g, device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,lead,t,d", ADVERSARIAL + [(5, (5, 300), 50, 5),
+                                                     (64, (2000,), 50, 5),
+                                                     (3, (3, 1029), 13, 6)])
+@pytest.mark.parametrize("dtype", ["fp32", "int8", "fp16"])
+def test_fused_scorers_bit_equal_on_adversarial_ensembles(cuda, dtype, q, lead, t, d):
+    case = _adversarial(t * d + len(lead), q, lead, t, d, dtype)
+    got = _kernel_scores(*case, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _plain_scores(*case, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,d", [(1, 1), (1000, 5), (1, 15), (2, 15)])
+@pytest.mark.parametrize("dtype", ["fp32", "int8"])
+def test_fused_scorers_score_large_ensembles_in_chunks(cuda, dtype, t, d):
+    """More conditions than the constant bank holds (1000 x 5), or more
+    leaves than one block's shared memory (2 trees of depth 15): the kernel
+    scores the trees in chunks, in tree order, with the same sums."""
+    for lead in ((300,), (3, 200)):
+        case = _adversarial(t + d, 3, lead, t, d, dtype)
+        got = _kernel_scores(*case, cuda)
+        torch.cuda.synchronize()
+        assert torch.equal(got, _plain_scores(*case, cuda))
 
 
 @pytest.mark.gpu

@@ -105,10 +105,11 @@ PATH_OF = {"fused_score": "discovery", "minhash": "discovery", "lsh_probe": "dis
            "lsh_probe_gathered": "scale", "fused_score_q": "scale",
            "profile_distance": "model", "gbdt_infer": "model", "quality_cdf": "model"}
 SIDE_BYTES = {"int8": 1, "fp16": 2}
-# the scorers' times before their redesign, at the phase-4 shapes (PERF.md's
+# kernels' times before their redesign, at the phase-4 shapes (PERF.md's
 # kernel table: NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
-EARLIER_SCORER_MS = {"fused_score": 1.1280, "fused_score gathered": 0.1154,
-                     "fused_score_q": 1.1161, "fused_score_q gathered": 0.1010}
+EARLIER_MS = {"fused_score": 1.1280, "fused_score gathered": 0.1154,
+              "fused_score_q": 1.1161, "fused_score_q gathered": 0.1010,
+              "gbdt_infer": 1.2519, "lsh_probe": 0.2425, "lsh_probe coarse": 0.0422}
 # the model path: the JAX package's evaluation lakes (benchmarks/common.py),
 # bench_lake(100), bench_lake(101) and hard_lake(102) to train on, as
 # bench_model does, and bench_lake(0) held out
@@ -285,6 +286,27 @@ def _adversarial(r, q, lead, t, d, dtype, dev):
     return zq_t, wq_t, zc_t, sc_t, wc_t, g
 
 
+def _adversarial_rows(r, n, f, t, d, dev):
+    """Feature rows and an ensemble that punish a flipped leaf: thresholds
+    drawn from the rows' own values, 0.0 and -0.0; rows at 0.0, -0.0 and
+    NaN; every third row exactly at one threshold, and that (feature,
+    threshold) pair repeated in every third tree."""
+    x = r.normal(size=(n, f)).astype(np.float32)
+    x[::4] = np.round(x[::4], 1)
+    x[1::6, ::2] = -0.0
+    x[2::6, ::3] = 0.0
+    x[5::7, 1::4] = np.nan
+    feats = r.integers(0, f, (t, d)).astype(np.int32)
+    pool = np.concatenate([np.float32([0.0, -0.0]), r.choice(x[np.isfinite(x)], 64)])
+    thrs = r.choice(pool, (t, d)).astype(np.float32)
+    feats[1::3, 0], thrs[1::3, 0] = feats[0, 0], thrs[0, 0]
+    x[::3, feats[0, 0]] = thrs[0, 0]
+    g = (torch.from_numpy(feats).to(dev), torch.from_numpy(thrs).to(dev),
+         torch.from_numpy(r.normal(size=(t, 1 << d)).astype(np.float32)).to(dev),
+         float(np.float32(r.normal())))
+    return torch.from_numpy(x).to(dev), g
+
+
 def _scorer_equal(name, got, want, shape) -> None:
     if not torch.equal(got, want):
         err = float((got - want).abs().max())
@@ -313,6 +335,27 @@ def check_ragged(dev) -> None:
         ck = hashes_to_torch(r.integers(0, 40, (c, b)).astype(np.uint32), dev)
         if not torch.equal(ops.lsh_probe(qk, ck), ref.lsh_probe_ref(qk, ck)):
             raise AssertionError(f"lsh_probe differs from its plain version at {(q, c, b)}")
+    # every path of the probe: B = 16 and 64 in registers, other B from
+    # shared memory, several query groups (Q = 65, 130), C = 1000 not a
+    # multiple of the 128-column tile, sentinel rows, and keys at a 4-byte
+    # offset (the 4-byte copies)
+    for q in (1, 63, 65, 130):
+        for b in (1, 7, 12, 16, 64, 256):
+            qk = r.integers(0, 60, (q, b)).astype(np.uint32)
+            ck = r.integers(0, 60, (1000, b)).astype(np.uint32)
+            ck[::5] = PAD_CORPUS
+            ck[-1, -1] = qk[0, -1]
+            if q > 1:
+                qk[-1] = PAD_QUERY
+            qk, ck = to_bits(hashes_to_torch(qk, dev)), to_bits(hashes_to_torch(ck, dev))
+            views = [ck]
+            if b in (12, 16, 64):
+                unaligned = torch.empty(ck.numel() + 1, dtype=torch.int32, device=dev)[1:]
+                views.append(unaligned.view(ck.shape).copy_(ck))
+            for keys in views:
+                if not torch.equal(lsh_probe_cuda(qk, keys), ref.lsh_probe_ref(qk, ck)):
+                    raise AssertionError(f"lsh_probe differs from its plain version at "
+                                         f"{(q, 1000, b)}, offset {keys.data_ptr() % 16}")
     # B % 4 == 0 takes the kernel's 16-byte loads, other B and an unaligned
     # (offset) view of the keys the one-key loads
     for q, c, b in [(1, 1, 1), (3, 300, 16), (5, 257, 64), (2, 1000, 256),
@@ -373,6 +416,21 @@ def check_ragged(dev) -> None:
         g = (feats, thrs, leaves, base)
         if not torch.equal(ops.gbdt_infer(x, g), ref.gbdt_infer_ref(x, *g)):
             raise AssertionError(f"gbdt_infer differs from its plain version at {(n, f, t, d)}")
+    # ensembles that punish a flipped leaf; (1000, 5) is scored in chunks
+    # of trees, (1, 15) beside 128 KB of leaves, F = 200 in 128-row tiles;
+    # an offset view takes the 4-byte copies
+    for n, f, t, d in [(1000, FT.F_DIST, 50, 5), (777, 24, 50, 8), (300, 5, 13, 6),
+                       (4099, FT.F_DIST, 1000, 5), (513, 24, 1000, 5), (200, FT.F_DIST, 1, 15),
+                       (300, 200, 50, 5), (2000, FT.F_DIST, 50, 5), (2000, 24, 50, 5)]:
+        x, g = _adversarial_rows(r, n, f, t, d, dev)
+        views = [x]
+        if n == 2000:
+            views.append(torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x))
+        for rows in views:
+            if not torch.equal(ops.gbdt_infer(rows, g), ref.gbdt_infer_ref(x, *g)):
+                raise AssertionError(f"gbdt_infer differs from its plain version on an "
+                                     f"adversarial ensemble at {(n, f, t, d)}, offset "
+                                     f"{rows.data_ptr() % 16}")
     for shape in [(1,), (1000,), (7, 13), (128, 401)]:
         j = torch.from_numpy(r.uniform(-0.1, 0.6, shape).astype(np.float32)).to(dev)
         k = torch.from_numpy(r.uniform(-0.1, 1.1, shape).astype(np.float32)).to(dev)
@@ -797,8 +855,7 @@ def measure_kernels(run, dev, launches: dict) -> list:
     out = []
 
     def earlier(name):
-        return f", before the redesign {EARLIER_SCORER_MS[name]:.4f} ms" \
-            if name in EARLIER_SCORER_MS else ""
+        return f", before the redesign {EARLIER_MS[name]:.4f} ms" if name in EARLIER_MS else ""
 
     def record(name, got, want, exact, k_fn, p_fn, bound, reps, plain_reps):
         """``exact``: True for bit-equality, or an absolute tolerance."""
@@ -876,7 +933,8 @@ def measure_kernels(run, dev, launches: dict) -> list:
     c_ms = time_ms(lambda: lsh_probe_cuda(qc_b, cc_b), 20, flush)
     cb_ms, cb_by = lsh_probe_bound(qc.shape[0], cc.shape[0], qc.shape[1])
     log(f"kernel lsh_probe (coarse digest {tuple(qc.shape)} x {tuple(cc.shape)}): "
-        f"{c_ms:.4f} ms (bound {cb_ms:.4f} ms by {cb_by})")
+        f"{c_ms:.4f} ms (bound {cb_ms:.4f} ms by {cb_by}, {cb_ms / c_ms:.1%} of it"
+        f"{earlier('lsh_probe coarse')})")
 
     # lsh_probe_gathered at the tiered fine probe's geometry: (Q, B) against
     # each query's (C', B) survivor keys

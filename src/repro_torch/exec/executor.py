@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.predictor import gbdt_to_torch
-from repro_torch.device import hashes_to_torch, resolve_device
+from repro_torch.device import hashes_to_torch, resolve_device, to_bits
 from repro_torch.exec import stages
 from repro_torch.exec.plan import QueryPlan
 from repro_torch.kernels.profile_distance import dequantize, quantize_profiles
@@ -116,9 +116,11 @@ class Executor:
                 else np.zeros((self.n_columns,), np.int32))
         self._tids = torch.from_numpy(tids.astype(np.int64)).to(dev)
         self._cids = torch.arange(self.n_columns, device=dev)
-        self._ckeys = (hashes_to_torch(band_keys, dev)
+        # the probes test key equality only: the resident keys are int32
+        # bit-views, built once, so no probe call converts the lake's keys
+        self._ckeys = (to_bits(hashes_to_torch(band_keys, dev))
                        if band_keys is not None else None)
-        self._coarse = (hashes_to_torch(coarse_keys, dev)
+        self._coarse = (to_bits(hashes_to_torch(coarse_keys, dev))
                         if coarse_keys is not None else None)
         self._tls = threading.local()
 
@@ -161,11 +163,12 @@ class Executor:
             sc, ids, n = self._local_all(zq, wq, tq, qid, **spec)
         elif plan.candidates == "tiered":
             sc, ids, n, *tier = self._local_tiered(
-                zq, wq, hashes_to_torch(qkeys, dev), hashes_to_torch(qcoarse, dev),
-                tq, qid, **spec)
+                zq, wq, to_bits(hashes_to_torch(qkeys, dev)),
+                to_bits(hashes_to_torch(qcoarse, dev)), tq, qid, **spec)
         else:
             sc, ids, n = self._local_pruned(
-                plan.candidates, zq, wq, hashes_to_torch(qkeys, dev), tq, qid, **spec)
+                plan.candidates, zq, wq, to_bits(hashes_to_torch(qkeys, dev)), tq, qid,
+                **spec)
         if self._fp32_rows is not None:
             sc, ids = self._rescore(zq, wq, sc, ids, plan.k)
         sc, ids = pad_topk(sc.cpu().numpy(), ids.to(torch.int32).cpu().numpy(),

@@ -1,11 +1,13 @@
 // Body of the fused profile-distance + oblivious-GBDT scorer, shared by
 // fused_score.cu (float32 corpus) and fused_score_q.cu (int8 or float16
-// sidecar), and the two device functions that the standalone kernels call.
+// sidecar), the device function profile_distance.cu calls, and the
+// ensemble's constant arrays that gbdt_infer.cu walks too.
 //
-// distance_features() (called by profile_distance.cu) and tree_walk()
-// (called by gbdt_infer.cu) keep the arithmetic of the first scorer; the
-// scorer below computes the same features and the same walk, bit for bit,
-// in its own device functions (row_features, walk_ensemble).
+// distance_features() (called by profile_distance.cu) and tree_walk() (the
+// arithmetic ref.gbdt_infer_ref mirrors) keep the arithmetic of the first
+// scorer; the scorer below and gbdt_infer.cu compute the same features and
+// the same walk, bit for bit, in their own device functions (row_features,
+// walk_ensemble; gbdt_infer.cu's walk_rows).
 //
 // The scorer's design. The pipe that paced the first scorer was the SM's
 // shared L1/shared-memory load pipe, not its arithmetic: per warp and 32
@@ -148,16 +150,18 @@ constexpr int MAX_CONDS = 4096;  // conditions the constant arrays hold
 constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory a block may hold
 constexpr int X_BYTES = F_DIST * TILE_N * (int)sizeof(float);  // one query's feature columns
 
-// One condition of the ensemble: the byte offset of its feature in a
-// thread's feature column (feature id x TILE_N x 4) and its threshold's bits.
-// pack_conditions() writes them to g_conds, which is copied to c_conds.
+// One condition of the ensemble: the byte offset of its feature from a
+// thread's first feature (feature id x the caller's feature stride in bytes:
+// TILE_N x 4 in the scorer's feature columns, 4 in gbdt_infer.cu's rows) and
+// its threshold's bits. pack_conditions() writes them to g_conds, which is
+// copied to c_conds. Both arrays are one per library (per .cu file).
 __constant__ int2 c_conds[MAX_CONDS];
 __device__ int2 g_conds[MAX_CONDS];
 
 __global__ void pack_conditions(const int32_t* __restrict__ feats,
-                                const float* __restrict__ thrs, int n) {
+                                const float* __restrict__ thrs, int n, int stride_bytes) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) g_conds[i] = make_int2(feats[i] * TILE_N * (int)sizeof(float), __float_as_int(thrs[i]));
+  if (i < n) g_conds[i] = make_int2(feats[i] * stride_bytes, __float_as_int(thrs[i]));
 }
 
 // 32-bit words of the tile buffer: the queries (16-byte aligned first), the
@@ -420,7 +424,8 @@ int launch(const void* zq, const void* wq, const void* zc, const void* scale,
     if (conds) {
       pack_conditions<<<(unsigned)((conds + 255) / 256), 256, 0, st>>>(
           static_cast<const int32_t*>(feats) + (size_t)t0 * depth,
-          static_cast<const float*>(thrs) + (size_t)t0 * depth, (int)conds);
+          static_cast<const float*>(thrs) + (size_t)t0 * depth, (int)conds,
+          TILE_N * (int)sizeof(float));
       void* staged = nullptr;
       err = cudaGetLastError();
       if (err == cudaSuccess) err = cudaGetSymbolAddress(&staged, g_conds);

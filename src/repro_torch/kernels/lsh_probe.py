@@ -43,9 +43,9 @@ def lsh_probe_cuda(qkeys_bits, ckeys_bits):
     if ckeys_bits.shape[1] != b:
         raise ValueError(f"lsh_probe: {b} query bands vs {ckeys_bits.shape[1]} "
                          f"corpus bands")
+    if q == 0 or c == 0 or b == 0:          # no band to share: no hit
+        return torch.zeros((q, c), dtype=torch.int32, device=qkeys_bits.device)
     out = torch.empty((q, c), dtype=torch.int32, device=qkeys_bits.device)
-    if q == 0 or c == 0:
-        return out
     lib = _build.library("lsh_probe")
     _check_bands("lsh_probe", b, lib.freyja_lsh_probe_max_bands())
     stream = torch.cuda.current_stream(qkeys_bits.device).cuda_stream

@@ -3,7 +3,9 @@
 A CPU tensor goes to the plain PyTorch version in ``ref.py``; a CUDA tensor
 goes to the hand-written kernel, or the call raises — there is no fallback
 from a kernel to a plain version. Hash inputs and outputs are int64 tensors
-holding uint32 values; the CUDA path hands the kernels int32 bit-views.
+holding uint32 values; the CUDA path hands the kernels int32 bit-views. The
+two probes also take int32 bit-views as they are (the executor keeps its
+resident band keys in that form), on either device.
 """
 from __future__ import annotations
 
@@ -62,19 +64,30 @@ def minhash(values, a, b):
     return from_bits(minhash_cuda(to_bits(values), to_bits(a), to_bits(b)))
 
 
+def _key_bits(t: torch.Tensor) -> torch.Tensor:
+    """Probe keys in one form on both devices: an int64 tensor holding uint32
+    values becomes its int32 bit-view, an int32 bit-view passes through. The
+    probes test equality only, and bit-views are equal exactly where the
+    uint32 values are; an int64 0xFFFFFFFF and an int32 -1 would not be after
+    promotion (and ``to_bits`` of an int32 tensor would be wrong: its mask
+    does not fit in int32)."""
+    return t.contiguous() if t.dtype == torch.int32 else to_bits(t)
+
+
 def lsh_probe(qkeys, ckeys):
-    """(Q, C) int32 hit mask of (Q, B) query keys against (C, B) corpus keys."""
+    """(Q, C) int32 hit mask of (Q, B) query keys against (C, B) corpus keys,
+    each int64 holding uint32 or an int32 bit-view."""
     if not _on_cuda(qkeys, "lsh_probe"):
-        return ref.lsh_probe_ref(qkeys, ckeys)
-    return lsh_probe_cuda(to_bits(qkeys), to_bits(ckeys))
+        return ref.lsh_probe_ref(_key_bits(qkeys), _key_bits(ckeys))
+    return lsh_probe_cuda(_key_bits(qkeys), _key_bits(ckeys))
 
 
 def lsh_probe_gathered(qkeys, ckeys):
     """(Q, C') int32 hit mask of (Q, B) query keys against each query's own
-    (Q, C', B) gathered key rows."""
+    (Q, C', B) gathered key rows (int64 holding uint32, or int32 bit-views)."""
     if not _on_cuda(qkeys, "lsh_probe_gathered"):
-        return ref.lsh_probe_gathered_ref(qkeys, ckeys)
-    return lsh_probe_gathered_cuda(to_bits(qkeys), to_bits(ckeys))
+        return ref.lsh_probe_gathered_ref(_key_bits(qkeys), _key_bits(ckeys))
+    return lsh_probe_gathered_cuda(_key_bits(qkeys), _key_bits(ckeys))
 
 
 def profile_distance(zq, wq, zc, wc):

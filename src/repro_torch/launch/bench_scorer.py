@@ -1,17 +1,21 @@
-"""Time the two fused scorer kernels at the main path's shapes on one card.
+"""Time the fused scorers, gbdt_infer and lsh_probe at the main path's shapes.
 
   PYTHONPATH=src python -m repro_torch.launch.bench_scorer --tag new
 
 Scores Q = 64 random query profiles against a shared corpus of 100k random
 profiles and against per-query gathered corpora (64 x 4096 rows for
-float32, 64 x 2048 for the sidecars), with a random T = 50, D = 5 ensemble
-(inputs from a fixed seed), over float32, int8 and fp16 corpora. Each
-kernel is held against its plain version bit for bit and timed with CUDA
-events as ``chip_smoke.py`` times kernels (L2 flushed, the launch queued
-behind a device spin). To compare two checkouts on one card, run this file
-with ``PYTHONPATH`` pointing at each checkout's ``src`` in turn: the kernels
-are those of the ``repro_torch`` it imports. Prints the card and one JSON
-line.
+float32, 64 x 2048 for the sidecars), with a random T = 50, D = 5 ensemble,
+over float32, int8 and fp16 corpora. Runs the same ensemble over
+(6.4M, 23) random feature rows with ``gbdt_infer`` (the two-stage scorer's
+shape), and probes (64, B) random query keys against (100k, B) corpus keys
+with ``lsh_probe`` at B = 64 (the pruned plans' fine bands) and B = 16 (the
+tiered coarse digest). Inputs come from a fixed seed. Each kernel is held
+against its plain version bit for bit and timed with CUDA events as
+``chip_smoke.py`` times kernels (L2 flushed, the launch queued behind a
+device spin). To compare two checkouts on one card, run this file by its
+path with ``PYTHONPATH`` pointing at each checkout's ``src`` in turn: the
+kernels are those of the ``repro_torch`` it imports. Prints the card and one
+JSON line.
 """
 from __future__ import annotations
 
@@ -25,11 +29,14 @@ import torch
 from repro_torch.core import features as FT
 from repro_torch.device import hashes_to_torch, to_bits
 from repro_torch.kernels import ref
+from repro_torch.kernels.gbdt_infer import gbdt_infer_cuda
+from repro_torch.kernels.lsh_probe import lsh_probe_cuda
 from repro_torch.kernels.profile_distance import (fused_score_cuda, fused_score_q_cuda,
                                                   quantize_profiles)
 
 Q, N, T, D = 64, 100_000, 50, 5
 GATHERED_M = {"fp32": 4096, "int8": 2048, "fp16": 2048}
+BANDS = {"lsh_probe": 64, "lsh_probe coarse": 16}
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
@@ -87,6 +94,20 @@ def main(argv=None):
             equal = bool(torch.equal(fn(), want))
             out[f"{dtype}_{geo}"] = {"ms": time_ms(fn, args.reps, flush), "equal": equal,
                                      "shape": list(zs.shape)}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((Q * N, FT.F_DIST), generator=gen, device=dev).abs_()
+    fn = lambda: gbdt_infer_cuda(x, *g)
+    out["gbdt_infer"] = {"ms": time_ms(fn, args.reps, flush),
+                         "equal": bool(torch.equal(fn(), ref.gbdt_infer_ref(x, *g))),
+                         "shape": list(x.shape)}
+    del x
+    for name, b in BANDS.items():
+        qk = torch.randint(0, 40, (Q, b), generator=gen, device=dev, dtype=torch.int32)
+        ck = torch.randint(0, 40, (N, b), generator=gen, device=dev, dtype=torch.int32)
+        fn = lambda: lsh_probe_cuda(qk, ck)
+        out[name] = {"ms": time_ms(fn, args.reps, flush),
+                     "equal": bool(torch.equal(fn(), ref.lsh_probe_ref(qk, ck))),
+                     "shape": [Q, N, b]}
     print(json.dumps(out), flush=True)
     if not all(v["equal"] for k, v in out.items() if k != "tag"):
         raise SystemExit("bench_scorer: a kernel differs from its plain version")

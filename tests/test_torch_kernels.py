@@ -16,9 +16,11 @@ from repro.kernels import ref as jax_ref
 from repro_torch.core import features as FT
 from repro_torch.device import from_bits, hashes_to_numpy, hashes_to_torch, to_bits
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.lsh_probe import PAD_CORPUS, PAD_QUERY, lsh_probe_gathered_cuda
+from repro_torch.kernels.lsh_probe import (PAD_CORPUS, PAD_QUERY, lsh_probe_cuda,
+                                           lsh_probe_gathered_cuda)
 from repro_torch.kernels.minhash import make_permutations
 from repro_torch.kernels.profile_distance import quantize_profiles
+from test_torch_model import GBDT_ADVERSARIAL, adversarial_rows
 
 # scores: the tolerances of tests/test_kernels.py (float32 GBDT sums)
 RTOL, ATOL = 1e-4, 1e-5
@@ -152,6 +154,45 @@ def test_lsh_probe_gathered_matches_pallas(q, c, b):
     assert np.array_equal(got.numpy(), np.asarray(want))
     assert bool(got.any()) == (q > 1 and c > 1)
     assert not got[-1].any() and not got[:, ::3].any()
+
+
+def _wide_keys(q, c, b, seed, gathered):
+    """Keys drawn from a few values on both sides of 2^31 (so bit-views are
+    negative), with both sentinels: a padded query row, padded corpus rows."""
+    rng = np.random.default_rng(seed)
+    pool = np.uint32([3, 2 ** 31 - 1, 2 ** 31, 2 ** 31 + 5, 0xFFFFFFF0, PAD_CORPUS])
+    qk = rng.choice(pool[:-1], (q, b)).astype(np.uint32)
+    ck = rng.choice(pool, (q, c, b) if gathered else (c, b)).astype(np.uint32)
+    qk[-1] = PAD_QUERY
+    ck[..., ::4, :] = PAD_CORPUS
+    return qk, ck
+
+
+@pytest.mark.parametrize("q_form,c_form", [("u32", "u32"), ("bits", "bits"),
+                                           ("u32", "bits"), ("bits", "u32")])
+@pytest.mark.parametrize("gathered", [False, True])
+def test_lsh_probes_take_int64_and_bit_view_keys(gathered, q_form, c_form):
+    """The ops give the same mask for int64 keys holding uint32 values,
+    int32 bit-views (the executor's resident form) and one of each: keys at
+    and above 2^31 and both sentinels included, held against the Pallas
+    kernel in interpret mode."""
+    q, c, b = 5, 300, 16
+    qk, ck = _wide_keys(q, c, b, seed=q_form == "bits", gathered=gathered)
+    form = {"u32": lambda a: hashes_to_torch(a, "cpu"),
+            "bits": lambda a: to_bits(hashes_to_torch(a, "cpu"))}
+    qt, ct = form[q_form](qk), form[c_form](ck)
+    if gathered:
+        got = ops.lsh_probe_gathered(qt, ct)
+        want = lsh_probe_gathered_pallas(jnp.asarray(qk), jnp.asarray(ck), block_q=2,
+                                         block_c=128, interpret=True)
+    else:
+        got = ops.lsh_probe(qt, ct)
+        want = lsh_probe_pallas(jnp.asarray(qk), jnp.asarray(ck), block_q=4, block_c=128,
+                                interpret=True)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert got.any() and not got[-1].any()
+    assert not got[..., ::4].any()
 
 
 def _quantized(r, lead, dtype):
@@ -325,13 +366,46 @@ def test_minhash_kernel_matches_plain(cuda, c, r, p):
     assert torch.equal(got, ref.minhash_ref(v, a, b))
 
 
+
+
+def _probe_keys(q, c, b, seed):
+    """Sentinel rows (a padded query, padded columns), a guaranteed hit, and
+    keys from a small space for plenty of hits."""
+    rng = np.random.default_rng(seed)
+    qk = rng.integers(0, 60, (q, b)).astype(np.uint32)
+    ck = rng.integers(0, 60, (c, b)).astype(np.uint32)
+    ck[::5] = PAD_CORPUS
+    ck[-1, -1] = qk[0, -1]
+    if q > 1:
+        qk[-1] = PAD_QUERY
+    return qk, ck
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("q,c,b", [(1, 1, 1), (11, 777, 32), (64, 5000, 64)])
+@pytest.mark.parametrize("q,c,b", [(1, 1, 1), (11, 777, 32), (64, 5000, 64)]
+                         + [(q, 1000, b) for q in (1, 63, 65, 130)
+                            for b in (1, 7, 12, 16, 64, 256)])
 def test_lsh_probe_kernel_matches_plain(cuda, q, c, b):
-    rng = np.random.default_rng(q + c)
-    qk = hashes_to_torch(rng.integers(0, 40, (q, b)).astype(np.uint32), cuda)
-    ck = hashes_to_torch(rng.integers(0, 40, (c, b)).astype(np.uint32), cuda)
+    """Every path of the kernel: B = 16 and 64 in registers, other B from
+    shared memory; several query groups (Q = 65, 130); C not a multiple of
+    the 128-column tile; keys through the ops' int64 conversion."""
+    qk, ck = (hashes_to_torch(x, cuda) for x in _probe_keys(q, c, b, seed=q + c + b))
     got = ops.lsh_probe(qk, ck)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.lsh_probe_ref(qk, ck))
+    assert got[0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [12, 16, 64])
+def test_lsh_probe_kernel_takes_unaligned_keys(cuda, b):
+    """Corpus keys that are contiguous but not 16-byte aligned (a view at a
+    4-byte offset) take the kernel's 4-byte copies."""
+    qk, ck = (to_bits(hashes_to_torch(x, cuda)) for x in _probe_keys(65, 333, b, seed=b))
+    view = torch.empty(ck.numel() + 1, dtype=torch.int32, device=cuda)[1:].view(ck.shape)
+    view.copy_(ck)
+    assert view.data_ptr() % 16 != 0
+    got = lsh_probe_cuda(qk, view)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.lsh_probe_ref(qk, ck))
 
@@ -440,6 +514,34 @@ def test_gbdt_infer_kernel_matches_plain(cuda, n, f, t, d):
     got = ops.gbdt_infer(xt, g)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.gbdt_infer_ref(xt, *g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,t,d", GBDT_ADVERSARIAL + [(4099, 23, 1000, 5), (513, 24, 1000, 5),
+                                                      (200, 23, 1, 15), (300, 200, 50, 5)])
+def test_gbdt_infer_kernel_bit_equal_on_adversarial_ensembles(cuda, n, f, t, d):
+    """Rows at thresholds, -0.0, NaN, a condition repeated across trees;
+    (1000, 5) is scored in chunks of trees, (1, 15) beside 128 KB of leaves,
+    F = 200 in 128-row tiles."""
+    x, g = adversarial_rows(n * f + t, n, f, t, d)
+    xt, gt = torch.from_numpy(x).to(cuda), _torch_gbdt(g, cuda)
+    got = ops.gbdt_infer(xt, gt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.gbdt_infer_ref(xt, *gt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [23, 24])
+def test_gbdt_infer_kernel_takes_an_offset_view(cuda, f):
+    """Rows that start 4 bytes past a 16-byte boundary take the 4-byte copies."""
+    x, g = adversarial_rows(f, 2000, f, 50, 5)
+    view = torch.empty(x.size + 1, dtype=torch.float32, device=cuda)[1:].view(x.shape)
+    view.copy_(torch.from_numpy(x))
+    assert view.data_ptr() % 16 != 0
+    gt = _torch_gbdt(g, cuda)
+    got = ops.gbdt_infer(view, gt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.gbdt_infer_ref(view, *gt))
 
 
 @pytest.mark.gpu

@@ -25,6 +25,7 @@ from repro.core.predictor import exact_jk as jax_exact_jk
 from repro.core.predictor import pairwise_distances as jax_pairwise_distances
 from repro.core.predictor import predict_scores_ref as jax_predict_scores_ref
 from repro.kernels import ops as jops
+from repro.kernels import ref as jax_ref
 from repro.kernels.gbdt_infer import gbdt_infer_pallas
 from repro.kernels.profile_distance import profile_distance_pallas
 from repro_torch.convert import gbdt_from_jax, profiles_from_jax
@@ -87,6 +88,44 @@ def test_gbdt_infer_matches_pallas(n, t, d):
                              block_n=256, interpret=True)
     got = ops.gbdt_infer(torch.from_numpy(x), gbdt_to_torch(g, "cpu"))
     assert got.shape == (n,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# (N, F, T, D) of the adversarial ensembles: the distance tensor's width,
+# an even width (the kernel's padded pitch), a narrow one, the deep (50, 8)
+GBDT_ADVERSARIAL = [(1000, 23, 50, 5), (777, 24, 50, 8), (300, 5, 13, 6), (129, 23, 2, 1)]
+
+
+def adversarial_rows(seed, n, f, t, d):
+    """Rows and an ensemble that punish a flipped leaf: thresholds drawn
+    from the rows' own values, 0.0 and -0.0; rows at 0.0, -0.0 and NaN; every
+    third row exactly at one threshold, and that (feature, threshold) pair
+    repeated in every third tree. Returns (x (n, f) f32, (feats, thrs,
+    leaves, base)) as numpy."""
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(n, f)).astype(np.float32)
+    x[::4] = np.round(x[::4], 1)                          # coarse values: ties
+    x[1::6, ::2] = -0.0
+    x[2::6, ::3] = 0.0
+    x[5::7, 1::4] = np.nan
+    feats = r.integers(0, f, (t, d)).astype(np.int32)
+    pool = np.concatenate([np.float32([0.0, -0.0]), r.choice(x[np.isfinite(x)], 64)])
+    thrs = r.choice(pool, (t, d)).astype(np.float32)
+    feats[1::3, 0], thrs[1::3, 0] = feats[0, 0], thrs[0, 0]
+    x[::3, feats[0, 0]] = thrs[0, 0]
+    leaves = r.normal(size=(t, 1 << d)).astype(np.float32)
+    return x, (feats, thrs, leaves, float(np.float32(r.normal())))
+
+
+@pytest.mark.parametrize("n,f,t,d", GBDT_ADVERSARIAL)
+def test_gbdt_infer_plain_matches_jax_oracle_on_adversarial_ensembles(n, f, t, d):
+    """The kernel's plain version (which the CUDA kernel must equal bit for
+    bit) against the JAX oracle at tests/test_kernels.py's tolerances, on
+    ties, signed zeros and NaN features."""
+    x, g = adversarial_rows(n + t, n, f, t, d)
+    want = jax_ref.gbdt_infer_ref(*map(jnp.asarray, (x, *g[:3])), g[3])
+    got = ops.gbdt_infer(torch.from_numpy(x), gbdt_to_torch(g, "cpu"))
+    assert got.shape == (n,) and bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 

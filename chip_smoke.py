@@ -34,9 +34,12 @@ Phases:
    the fused scorer's, and the predictions correlate with the exact
    metric (> 0.6);
 4. each kernel at the main path's shapes and inputs: against its plain
-   version, and timed with CUDA events beside its bound;
+   version, and timed with CUDA events beside its bound (the gathered probe
+   in both forms and beside the earlier gather-then-probe route; an empty
+   kernel's launch floor beside ``quality_cdf``);
 5. one profiled batch of each plan and one two-stage scorer call: device
-   time by operation and the device's idle share.
+   time by operation and the device's idle share; the tiered plan also
+   through the earlier route of its fine probe.
 
 It prints one ``kernels`` JSON line and, last, one ``ok`` JSON line; any
 failure raises and exits non-zero. It imports nothing of JAX.
@@ -78,6 +81,7 @@ from repro_torch.kernels.minhash import (make_permutations,       # noqa: E402
 from repro_torch.kernels.profile_distance import (                # noqa: E402
     fused_score_cuda, fused_score_q_cuda, profile_distance_cuda, quantize_profiles)
 from repro_torch.kernels.quality_cdf import quality_cdf_cuda      # noqa: E402
+from repro_torch.launch.bench_scorer import launch_floor          # noqa: E402
 from repro_torch.service import catalog                           # noqa: E402
 from repro_torch.service.lsh import LSHConfig, LSHIndex           # noqa: E402
 
@@ -109,7 +113,9 @@ SIDE_BYTES = {"int8": 1, "fp16": 2}
 # kernel table: NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 EARLIER_MS = {"fused_score": 1.1280, "fused_score gathered": 0.1154,
               "fused_score_q": 1.1161, "fused_score_q gathered": 0.1010,
-              "gbdt_infer": 1.2519, "lsh_probe": 0.2425, "lsh_probe coarse": 0.0422}
+              "gbdt_infer": 1.2519, "lsh_probe": 0.2425, "lsh_probe coarse": 0.0422,
+              "lsh_probe_gathered pre-gathered": 0.0223, "quality_cdf": 0.0073,
+              "quality_cdf exact metric": 0.0506}
 # the model path: the JAX package's evaluation lakes (benchmarks/common.py),
 # bench_lake(100), bench_lake(101) and hard_lake(102) to train on, as
 # bench_model does, and bench_lake(0) held out
@@ -178,6 +184,14 @@ def lsh_probe_gathered_bound(q: int, c: int, b: int):
     """Each query's own (C', B) gathered keys and its B keys read once, the
     (Q, C') hit mask written once; a compare and an or per key."""
     return bound_ms(q * c * b * 4 + q * b * 4 + q * c * 4, 0.0, 2.0 * q * c * b)
+
+
+def lsh_probe_indexed_bound(q: int, c: int, b: int, rows: int):
+    """The indexed form: the ``rows`` distinct table rows that the (Q, C')
+    int64 positions name (B keys each) and the positions and query keys
+    read once, the (Q, C') hit mask written once; a compare and an or per
+    (query, survivor, band)."""
+    return bound_ms(rows * b * 4 + q * c * 8 + q * b * 4 + q * c * 4, 0.0, 2.0 * q * c * b)
 
 
 def profile_distance_bound(q: int, n: int):
@@ -314,6 +328,13 @@ def _scorer_equal(name, got, want, shape) -> None:
                              f"max |err| {err}, {int((got != want).sum())} scores")
 
 
+def _equal_nan(name, got, want) -> None:
+    """Bit-equal, with NaN in the same places."""
+    nan = torch.isnan(want)
+    if not (torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan])):
+        raise AssertionError(f"{name}: kernel differs from its plain version")
+
+
 def check_ragged(dev) -> None:
     r = np.random.default_rng(0)
     for q, n, t, d in [(1, 1, 1, 1), (5, 300, 50, 5), (13, 1029, 13, 6), (9, 77, 50, 8)]:
@@ -356,10 +377,12 @@ def check_ragged(dev) -> None:
                 if not torch.equal(lsh_probe_cuda(qk, keys), ref.lsh_probe_ref(qk, ck)):
                     raise AssertionError(f"lsh_probe differs from its plain version at "
                                          f"{(q, 1000, b)}, offset {keys.data_ptr() % 16}")
-    # B % 4 == 0 takes the kernel's 16-byte loads, other B and an unaligned
-    # (offset) view of the keys the one-key loads
+    # B % 4 == 0 up to 64 over an aligned table takes the kernel's 16-byte
+    # loads (16 lanes a row), every other B (1 to 8 keys a lane) and an
+    # unaligned (offset) view of the keys the one-key loads (32 lanes a row)
     for q, c, b in [(1, 1, 1), (3, 300, 16), (5, 257, 64), (2, 1000, 256),
-                    (3, 100, 12), (2, 333, 7)]:
+                    (3, 100, 12), (2, 333, 7), (4, 129, 4), (3, 200, 8), (2, 300, 32),
+                    (3, 150, 100), (2, 260, 128)]:
         qk = r.integers(0, 40, (q, b)).astype(np.uint32)
         ck = r.integers(0, 40, (q, c, b)).astype(np.uint32)
         ck[:, ::3] = PAD_CORPUS
@@ -374,6 +397,24 @@ def check_ragged(dev) -> None:
                                ref.lsh_probe_gathered_ref(from_bits(qk), from_bits(keys))):
                 raise AssertionError(f"lsh_probe_gathered differs from its plain version "
                                      f"at {(q, c, b)}")
+        # the indexed form over a resident table (aligned and at a 4-byte
+        # offset): repeated positions within and across queries, negative
+        # ones counted from the end
+        n = 2 * c + 3
+        table = r.integers(0, 40, (n, b)).astype(np.uint32)
+        table[::4] = PAD_CORPUS
+        pos = r.integers(-n, n, (q, c))
+        pos[:, 1::3] = pos[:, :1]
+        pos[-1, ::2] = pos[0, ::2]
+        table = to_bits(hashes_to_torch(table, dev))
+        pos = torch.from_numpy(pos).to(dev)
+        unaligned = torch.empty(table.numel() + 1, dtype=torch.int32, device=dev)[1:]
+        for keys in (table, unaligned.view(table.shape).copy_(table)):
+            if not torch.equal(lsh_probe_gathered_cuda(qk, keys, pos),
+                               ref.lsh_probe_gathered_ref(qk, table[pos])):
+                raise AssertionError(f"lsh_probe_gathered (indexed) differs from its plain "
+                                     f"version at {(q, c, b)}, table offset "
+                                     f"{keys.data_ptr() % 16}")
     for dtype in SIDE_BYTES:
         for q, n, t, d in [(1, 1, 1, 1), (5, 300, 50, 5), (13, 1029, 13, 6)]:
             zq, wq = _random_profiles(r, (q,), dev)
@@ -431,14 +472,23 @@ def check_ragged(dev) -> None:
                 raise AssertionError(f"gbdt_infer differs from its plain version on an "
                                      f"adversarial ensemble at {(n, f, t, d)}, offset "
                                      f"{rows.data_ptr() % 16}")
-    for shape in [(1,), (1000,), (7, 13), (128, 401)]:
-        j = torch.from_numpy(r.uniform(-0.1, 0.6, shape).astype(np.float32)).to(dev)
-        k = torch.from_numpy(r.uniform(-0.1, 1.1, shape).astype(np.float32)).to(dev)
-        j.view(-1)[::11] = float("nan")
+    # quality_cdf bit for bit, NaN in place: the one-pair walk (small n, or
+    # j and k at different offsets), and the 4-pair walk (n from 4·256 pairs
+    # an SM) with its scalar head and tail (n % 4, views at 1-3 floats past
+    # a 16-byte boundary)
+    for shape, off_j, off_k in [((1,), 0, 0), ((3,), 0, 0), ((5,), 0, 0), ((1000,), 0, 0),
+                                ((4097,), 0, 0), ((7, 13), 0, 0), ((128, 401), 0, 0),
+                                ((300_001,), 0, 0), ((200_003,), 1, 1), ((200_003,), 3, 3),
+                                ((200_003,), 1, 2)]:
+        n = int(np.prod(shape))
+        jb = torch.from_numpy(r.uniform(-0.1, 0.6, n + 3).astype(np.float32)).to(dev)
+        kb = torch.from_numpy(r.uniform(-0.1, 1.1, n + 3).astype(np.float32)).to(dev)
+        jb[::11] = float("nan")
+        j, k = jb[off_j:off_j + n].view(shape), kb[off_k:off_k + n].view(shape)
         for s in quality.STRICTNESS.values():
             args = (j, k, quality.MU_J + s, quality.SIGMA_J, quality.MU_K, quality.SIGMA_K)
-            torch.testing.assert_close(ops.quality_cdf(*args), ref.quality_cdf_ref(*args),
-                                       rtol=0, atol=LABEL_ATOL, equal_nan=True)
+            _equal_nan(f"quality_cdf at {shape}, offsets {(off_j, off_k)}",
+                       ops.quality_cdf(*args), ref.quality_cdf_ref(*args))
     torch.cuda.synchronize()
 
 
@@ -937,15 +987,36 @@ def measure_kernels(run, dev, launches: dict) -> list:
         f"{earlier('lsh_probe coarse')})")
 
     # lsh_probe_gathered at the tiered fine probe's geometry: (Q, B) against
-    # each query's (C', B) survivor keys
+    # each query's C' survivors, read in place from the resident (N, B) table
+    # through their positions, as the tiered plan calls it
+    # (the row's "form": "indexed"; before this form the row timed the
+    # pre-gathered one, whose time and bound are kept beside it as
+    # "pre_gathered_ms" and "pre_gathered_bound_ms")
     tr = run["tiered_ref"]
-    kg = ck[tr["pos"]].contiguous()
+    pos = tr["pos"].contiguous()
+    distinct = torch.unique(pos).numel()
+    out.append(record("lsh_probe_gathered", ops.lsh_probe_gathered(qk, ck, pos),
+                      ref.lsh_probe_gathered_ref(qk, ck[pos]), True,
+                      lambda: lsh_probe_gathered_cuda(qk_b, ck_b, pos),
+                      lambda: ref.lsh_probe_gathered_ref(qk, ck[pos]),
+                      lsh_probe_indexed_bound(*pos.shape, qk.shape[1], distinct), 20, 3))
+    # ... the pre-gathered form over the same rows (the TPU kernel's
+    # signature), and the earlier route: the (Q, C', B) copy, then the probe
+    kg = ck[pos].contiguous()
     kg_b = to_bits(kg)
-    out.append(record("lsh_probe_gathered", ops.lsh_probe_gathered(qk, kg),
-                      ref.lsh_probe_gathered_ref(qk, kg), True,
-                      lambda: lsh_probe_gathered_cuda(qk_b, kg_b),
-                      lambda: ref.lsh_probe_gathered_ref(qk, kg),
-                      lsh_probe_gathered_bound(*kg.shape), 20, 3))
+    if not torch.equal(ops.lsh_probe_gathered(qk, kg), ref.lsh_probe_gathered_ref(qk, kg)):
+        raise AssertionError("lsh_probe_gathered (pre-gathered) differs from its plain version")
+    pg_ms = time_ms(lambda: lsh_probe_gathered_cuda(qk_b, kg_b), 20, flush)
+    route_ms = time_ms(lambda: lsh_probe_gathered_cuda(qk_b, ck_b[pos]), 20, flush)
+    fused_ms = time_ms(lambda: lsh_probe_gathered_cuda(qk_b, ck_b, pos), 20, flush)
+    pgb_ms, pgb_by = lsh_probe_gathered_bound(*kg.shape)
+    out[-1].update(form="indexed", distinct_rows=distinct, pre_gathered_ms=pg_ms,
+                   pre_gathered_bound_ms=pgb_ms)
+    log(f"kernel lsh_probe_gathered (pre-gathered {tuple(kg.shape)}): {pg_ms:.4f} ms (bound "
+        f"{pgb_ms:.4f} ms by {pgb_by}, {pgb_ms / pg_ms:.1%} of it"
+        f"{earlier('lsh_probe_gathered pre-gathered')}); the earlier route (gather the "
+        f"survivors' keys, then probe) {route_ms:.4f} ms vs in place {fused_ms:.4f} ms; "
+        f"{distinct} distinct rows of {pos.numel()} positions")
 
     # fused_score_q over the int8 sidecar: the quantized full scan's (Q, N)
     side, scale = quantize_profiles(prof.zscored, "int8")
@@ -1009,23 +1080,28 @@ def measure_kernels(run, dev, launches: dict) -> list:
     qp = (quality.MU_J + m["model"].strictness, quality.SIGMA_J, quality.MU_K,
           quality.SIGMA_K, 0.0, 1.0)
     out.append(record("quality_cdf", ops.quality_cdf(j, k, *qp),
-                      ref.quality_cdf_ref(j, k, *qp), LABEL_ATOL,
+                      ref.quality_cdf_ref(j, k, *qp), True,
                       lambda: quality_cdf_cuda(j, k, *qp),
                       lambda: ref.quality_cdf_ref(j, k, *qp),
                       quality_cdf_bound(j.numel()), 50, 10))
+    # ... beside the launch floor: an empty kernel through the same ctypes
+    # path, timed the same way
+    floor_ms = time_ms(lambda: launch_floor(dev), 50, flush)
+    log(f"launch floor (an empty kernel, timed as the kernels): {floor_ms:.4f} ms; "
+        f"quality_cdf at {tuple(j.shape)} {out[-1]['ms']:.4f} ms")
     # ... and at (Q, N) = (64, 100k) (uniform J, K from a seed)
     r = np.random.default_rng(11)
     shape = (zq.shape[0], z.shape[0])
     jl = torch.from_numpy(r.uniform(0, 0.5, shape).astype(np.float32)).to(dev)
     kl = torch.from_numpy(r.uniform(0, 1, shape).astype(np.float32)).to(dev)
-    got, want = ops.quality_cdf(jl, kl, *qp), ref.quality_cdf_ref(jl, kl, *qp)
-    torch.testing.assert_close(got, want, rtol=0, atol=LABEL_ATOL)
-    l_err = float((got - want).abs().max())
+    _equal_nan(f"quality_cdf at {shape}", ops.quality_cdf(jl, kl, *qp),
+               ref.quality_cdf_ref(jl, kl, *qp))
     l_ms = time_ms(lambda: quality_cdf_cuda(jl, kl, *qp), 20, flush)
     l_plain = time_ms(lambda: ref.quality_cdf_ref(jl, kl, *qp), 5, flush)
     lb_ms, lb_by = quality_cdf_bound(jl.numel())
     log(f"kernel quality_cdf (at {shape}): {l_ms:.4f} ms (bound {lb_ms:.4f} ms by {lb_by}, "
-        f"{lb_ms / l_ms:.1%} of it), plain {l_plain:.3f} ms, max |err| {l_err}")
+        f"{lb_ms / l_ms:.1%} of it{earlier('quality_cdf exact metric')}), plain "
+        f"{l_plain:.3f} ms, max |err| 0.0")
     return out
 
 
@@ -1036,7 +1112,8 @@ def measure_kernels(run, dev, launches: dict) -> list:
 def trace_plans(run) -> None:
     """Device time by operation over one steady batch of each plan and one
     two-stage scorer call (torch.profiler), beside the unprofiled steady
-    wall."""
+    wall. The tiered plan is traced a second time through the earlier route
+    of its fine probe (the survivors' keys gathered into a copy first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1053,12 +1130,34 @@ def trace_plans(run) -> None:
         log(f"trace {name}: device busy {busy:.3f} ms of a {steady:.3f} ms steady call "
             f"(idle share {max(0.0, 1 - busy / steady):.1%}); by self device time: "
             + "; ".join(f"{key} {ms:.3f} ms x{n}" for key, ms, n in rows[:8]))
+        return busy
 
+    busy = {}
     for name, (executor, plan, args) in run["runs"].items():
-        trace(name, lambda: executor.execute(plan, *args), run["steady_ms"][name])
+        busy[name] = trace(name, lambda: executor.execute(plan, *args), run["steady_ms"][name])
     model = run["model_run"]["model"]
     trace("two_stage", lambda: predict_scores(model, run["prof"], run["qids"]),
           run["walls"]["two_stage"] * 1e3)
+
+    executor, plan, args = run["runs"]["tiered_int8"]
+    in_place = stages.tiered_priorities
+
+    def gathered_first(zq, qkeys, zg, keys, valid, pos=None):
+        return in_place(zq, qkeys, zg, keys[pos], valid)
+
+    stages.tiered_priorities = gathered_first
+    try:
+        executor.execute(plan, *args)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            executor.execute(plan, *args)
+        steady = sync_wall(t0) / 5 * 1e3
+        before = trace("tiered_int8 (earlier route: survivors' keys gathered first)",
+                       lambda: executor.execute(plan, *args), steady)
+    finally:
+        stages.tiered_priorities = in_place
+    log(f"tiered_int8 device busy: earlier route {before:.3f} ms, keys read in place "
+        f"{busy['tiered_int8']:.3f} ms ({busy['tiered_int8'] - before:+.3f} ms)")
 
 
 def counted(path: str, required, drive):

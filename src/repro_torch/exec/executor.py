@@ -233,8 +233,9 @@ class Executor:
         pos, valid, n_hits, n_surv = stages.tiered_survivors(
             qcoarse, self._coarse, self._cids, self._tids, tq, qid,
             survivor_budget=survivor_budget, block_c=self.survivor_block, proxy=fill)
+        # the fine probe reads the survivors' band keys in place through pos
         prio = stages.tiered_priorities(zq, qkeys, dequantize(self._z[pos], self._zscale),
-                                        self._ckeys[pos], valid)
+                                        self._ckeys, valid, pos=pos)
         pos2, valid2 = stages.gather_candidates(prio, budget)
         gpos = torch.gather(pos, 1, pos2)                 # (Q, M) lake columns
         s = torch.where(valid2, self._score(zq, wq, gpos), float("-inf"))

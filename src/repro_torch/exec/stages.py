@@ -7,8 +7,9 @@ the same three-stage pipeline over the resident corpus:
    bucket probe, ``kernels/csrc/lsh_probe.cu``), ``hybrid`` (LSH hits
    ranked first, the remaining budget filled by profile-space proximity)
    or ``tiered`` (a coarse digest probe over the whole lake picks survivor
-   blocks, then the fine probe ``kernels/csrc/lsh_probe_gathered.cu`` and
-   the proxy rank only the gathered survivors);
+   blocks, then the fine probe ``kernels/csrc/lsh_probe_gathered.cu``,
+   reading the survivors' band keys in place, and the proxy rank only the
+   survivors);
 2. **score** — distance features + GBDT over the surviving columns, in the
    fused kernel ``kernels/csrc/fused_score.cu`` (``fused_score_q.cu`` for
    an int8 or float16 sidecar);
@@ -115,13 +116,15 @@ def tiered_survivors(qcoarse, coarse, cids, tids, tq, qid, *,
     return pos, valid, n_hits, n_survivors
 
 
-def tiered_priorities(zq, qkeys, zg, keys_g, valid):
+def tiered_priorities(zq, qkeys, zg, keys, valid, pos=None):
     """Fine pass of the tiered stage over gathered survivors: ``zg``
-    (Q, M', F_NUM) float32 profiles and ``keys_g`` (Q, M', B) fine band keys
-    of each query's survivors. The gathered probe plus the per-query proxy
-    rank them as the hybrid stage ranks the lake. Returns (Q, M')
-    priorities, -inf on invalid slots."""
-    hit = ops.lsh_probe_gathered(qkeys, keys_g)
+    (Q, M', F_NUM) float32 profiles of each query's survivors, and their
+    fine band keys, either gathered, ``keys`` (Q, M', B), or read in place
+    from the resident (N, B) table ``keys`` through the survivors' positions
+    ``pos`` (Q, M'). The gathered probe plus the per-query proxy rank them
+    as the hybrid stage ranks the lake. Returns (Q, M') priorities, -inf on
+    invalid slots."""
+    hit = ops.lsh_probe_gathered(qkeys, keys, pos)
     proxy = 2.0 * torch.einsum("qf,qmf->qm", zq, zg) - (zg * zg).sum(-1)
     proxy = proxy / (1.0 + torch.abs(proxy))
     prio = hit.to(torch.float32) * _LSH_PRIORITY_BOOST + proxy

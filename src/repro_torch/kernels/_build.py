@@ -32,6 +32,9 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("fused_score", "minhash", "lsh_probe", "lsh_probe_gathered",
            "fused_score_q", "profile_distance", "gbdt_infer", "quality_cdf")
+# built beside the kernels for the timing harness only: an empty kernel's
+# launch floor
+HARNESS = ("launch_floor",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,7 +45,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # C signature of each kernel's entry points: name -> (argtypes, restype)
 _SIGNATURES = {
     "fused_score": {
-        "freyja_fused_score": ([_P] * 7 + [_F, _P, _I, _I, _LL, _I, _I, _P], _I),
+        "freyja_fused_score": ([_P] * 7 + [_F, _P, _I, _I, _LL, _I, _I, _I, _P], _I),
         "freyja_fused_score_smem": ([_I, _I], _LL),
     },
     "minhash": {
@@ -53,22 +56,25 @@ _SIGNATURES = {
         "freyja_lsh_probe_max_bands": ([], _I),
     },
     "lsh_probe_gathered": {
-        "freyja_lsh_probe_gathered": ([_P] * 3 + [_I, _I, _I, _P], _I),
+        "freyja_lsh_probe_gathered": ([_P] * 4 + [_I, _I, _I, _LL, _I, _P], _I),
         "freyja_lsh_probe_gathered_max_bands": ([], _I),
     },
     "fused_score_q": {
-        "freyja_fused_score_q": ([_P] * 8 + [_F, _P, _I, _I, _LL, _I, _I, _I, _P], _I),
+        "freyja_fused_score_q": ([_P] * 8 + [_F, _P, _I, _I, _LL, _I, _I, _I, _I, _P], _I),
         "freyja_fused_score_q_smem": ([_I, _I], _LL),
     },
     "profile_distance": {
         "freyja_profile_distance": ([_P] * 5 + [_I, _I, _P], _I),
     },
     "gbdt_infer": {
-        "freyja_gbdt_infer": ([_P] * 4 + [_F, _P, _LL, _I, _I, _I, _P], _I),
+        "freyja_gbdt_infer": ([_P] * 4 + [_F, _P, _LL, _I, _I, _I, _I, _P], _I),
         "freyja_gbdt_infer_smem": ([_I, _I, _I], _LL),
     },
     "quality_cdf": {
-        "freyja_quality_cdf": ([_P] * 3 + [_LL] + [_F] * 8 + [_P], _I),
+        "freyja_quality_cdf": ([_P] * 3 + [_LL] + [_F] * 8 + [_I, _P], _I),
+    },
+    "launch_floor": {
+        "freyja_launch_floor": ([_P], _I),
     },
 }
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
@@ -78,6 +84,7 @@ geometry_counts = {name: {"shared": 0, "gathered": 0}
                    for name in ("fused_score", "fused_score_q")}
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_sm_counts: dict[int, int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -126,10 +133,10 @@ def library_path(name: str) -> Path:
 
 
 def build() -> dict[str, Path]:
-    """Compile every missing kernel library, one ``nvcc`` per source, all
-    running at once. Returns name -> library path."""
+    """Compile every missing kernel library (and the harness's), one
+    ``nvcc`` per source, all running at once. Returns name -> library path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: library_path(name) for name in KERNELS}
+    paths = {name: library_path(name) for name in (*KERNELS, *HARNESS)}
     procs = {}
     nvcc = None
     for name, path in paths.items():
@@ -165,6 +172,20 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _libs[name] = lib
         return lib
+
+
+def sm_count(device) -> int:
+    """The SM count of CUDA ``device``, read once per device. Every kernel
+    with a persistent grid (the scorers, ``gbdt_infer``, the gathered probe,
+    ``quality_cdf``) takes it as an argument and sizes its grid from it and
+    its resident blocks an SM."""
+    import torch
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    n = _sm_counts.get(index)
+    if n is None:
+        n = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
 
 
 def expect(op: str, t, name: str, dtype, shape) -> None:

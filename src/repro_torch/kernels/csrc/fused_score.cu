@@ -40,15 +40,16 @@ long long freyja_fused_score_smem(int n_trees, int depth) {
 
 // zq (Q, 21) f32, wq (Q, 11) u32 bits, zc/wc rows of 21 f32 / 11 u32 with
 // row index q * q_stride_rows + n, feats/thrs (T, D), leaves (T, 2^D)
-// -> out (Q, N) f32. Returns the first CUDA error of the launch (0 if none).
+// -> out (Q, N) f32; n_sms: the card's SM count. Returns the first CUDA
+// error of the launch (0 if none).
 int freyja_fused_score(const void* zq, const void* wq, const void* zc,
                        const void* wc, const void* feats, const void* thrs,
                        const void* leaves, float base, void* out, int n_queries,
                        int n_cols, long long q_stride_rows, int n_trees, int depth,
-                       void* stream) {
+                       int n_sms, void* stream) {
   return freyja_fused::launch<float>(zq, wq, zc, nullptr, wc, feats, thrs, leaves,
                                      base, out, n_queries, n_cols, q_stride_rows,
-                                     n_trees, depth, stream);
+                                     n_trees, depth, n_sms, stream);
 }
 
 }  // extern "C"

@@ -41,8 +41,8 @@
 //    leaves do not fit beside the tile, is scored in chunks of trees, in
 //    tree order: each chunk's launch starts from the sums the previous one
 //    wrote, so the float32 sum is the same.
-// 3. Persistent grid. The grid is the card's SM count times
-//    cudaOccupancyMaxActiveBlocksPerMultiprocessor; each block walks tiles
+// 3. Persistent grid. The grid is the card's SM count (passed by the
+//    wrapper) times cudaOccupancyMaxActiveBlocksPerMultiprocessor; each block walks tiles
 //    gridDim.x apart and copies the leaves to shared memory once. On the
 //    H100 at T = 50, D = 5 a shared-corpus block (four queries' feature
 //    columns) holds 72 KB (float32) or 64-67 KB (int8, fp16) and 96
@@ -397,12 +397,13 @@ __global__ void __launch_bounds__(TILE_N) fused_score_kernel(
 }
 
 // Launch the scorer for corpus element type T on `stream`; `scale` is null
-// for a float32 corpus. Returns the first CUDA error (0 when none).
+// for a float32 corpus, n_sms the card's SM count. Returns the first CUDA
+// error (0 when none).
 template <typename T>
 int launch(const void* zq, const void* wq, const void* zc, const void* scale,
            const void* wc, const void* feats, const void* thrs, const void* leaves,
            float base, void* out, int n_queries, int n_cols, long long q_stride_rows,
-           int n_trees, int depth, void* stream) {
+           int n_trees, int depth, int n_sms, void* stream) {
   if (n_queries == 0 || n_cols == 0) return 0;
   const int chunk = trees_per_launch<T>(n_trees, depth);
   if (chunk < 1 && n_trees > 0) return (int)cudaErrorInvalidValue;
@@ -412,10 +413,8 @@ int launch(const void* zq, const void* wq, const void* zc, const void* scale,
            q_stride_rows, (n_cols + TILE_N - 1) / TILE_N, q_stride_rows ? 1 : TILE_Q};
   const long long n_tiles =
       (long long)s.n_cb * ((n_queries + s.q_per_tile - 1) / s.q_per_tile);
-  int dev = 0, n_sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  if (n_sms < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
 
   int t0 = 0;
   do {

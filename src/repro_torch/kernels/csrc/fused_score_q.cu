@@ -33,16 +33,16 @@ int freyja_fused_score_q(const void* zq, const void* wq, const void* zc,
                          const void* scale, const void* wc, const void* feats,
                          const void* thrs, const void* leaves, float base, void* out,
                          int n_queries, int n_cols, long long q_stride_rows,
-                         int n_trees, int depth, int dtype, void* stream) {
+                         int n_trees, int depth, int dtype, int n_sms, void* stream) {
   switch (dtype) {
     case 0:
       return freyja_fused::launch<int8_t>(zq, wq, zc, scale, wc, feats, thrs, leaves,
                                           base, out, n_queries, n_cols, q_stride_rows,
-                                          n_trees, depth, stream);
+                                          n_trees, depth, n_sms, stream);
     case 1:
       return freyja_fused::launch<__half>(zq, wq, zc, scale, wc, feats, thrs, leaves,
                                           base, out, n_queries, n_cols, q_stride_rows,
-                                          n_trees, depth, stream);
+                                          n_trees, depth, n_sms, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -42,12 +42,12 @@
 //    is built with FFMA on the FMA pipe: `cond ? 1 << l : 0` compiled to
 //    FSETP, SEL and IADD3, all on the ALU pipe beside the compares, and ran
 //    13% slower. The tree loop is unrolled by 2.
-// 4. Persistent grid: SM count x cudaOccupancyMaxActiveBlocksPerMultiprocessor
-//    blocks walk tiles gridDim.x apart. On the H100 at F = 23, T = 50, D = 5 a
-//    block holds 53.5 KB (the tile and 6.4 KB of leaves) and the card
-//    reports 4 blocks an SM (16 warps). One tile buffer: a second one
-//    (2 blocks an SM) and per-warp tiles each measured slower, as did 3 or
-//    8 rows a thread.
+// 4. Persistent grid: SM count (passed by the wrapper) x
+//    cudaOccupancyMaxActiveBlocksPerMultiprocessor blocks walk tiles
+//    gridDim.x apart. On the H100 at F = 23, T = 50, D = 5 a block holds
+//    53.5 KB (the tile and 6.4 KB of leaves) and the card reports 4 blocks
+//    an SM (16 warps). One tile buffer: a second one (2 blocks an SM) and
+//    per-warp tiles each measured slower, as did 3 or 8 rows a thread.
 // 5. Nothing refused that the first kernel took: an ensemble with more than
 //    MAX_CONDS conditions, or whose leaves do not fit beside the tile, is
 //    scored in chunks of trees, in tree order, each launch adding onto the
@@ -224,10 +224,11 @@ long long freyja_gbdt_infer_smem(int n_feats, int n_trees, int depth) {
 }
 
 // x (N, F) f32, feats/thrs (T, D) i32/f32, leaves (T, 2^D) f32 -> out (N,)
-// f32, on `stream`. Returns the first CUDA error (0 when none).
+// f32, on `stream`; n_sms: the card's SM count. Returns the first CUDA error
+// (0 when none).
 int freyja_gbdt_infer(const void* x, const void* feats, const void* thrs,
                       const void* leaves, float base, void* out, long long n_rows,
-                      int n_feats, int n_trees, int depth, void* stream) {
+                      int n_feats, int n_trees, int depth, int n_sms, void* stream) {
   if (n_rows == 0) return 0;
   const int chunk = trees_per_launch(n_feats, n_trees, depth);
   if (chunk < 1 && n_trees > 0) return (int)cudaErrorInvalidValue;
@@ -237,10 +238,8 @@ int freyja_gbdt_infer(const void* x, const void* feats, const void* thrs,
   const bool vec16 = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const long long tile = (long long)rpt * THREADS;
   const long long n_tiles = (n_rows + tile - 1) / tile;
-  int dev = 0, n_sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  if (n_sms < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
 
   int t0 = 0;
   do {

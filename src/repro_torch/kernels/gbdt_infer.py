@@ -36,7 +36,7 @@ def gbdt_infer_cuda(x, feats, thrs, leaves, base: float):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.freyja_gbdt_infer(x.data_ptr(), feats.data_ptr(), thrs.data_ptr(),
                                 leaves.data_ptr(), float(base), out.data_ptr(), n, f,
-                                t, d, stream)
+                                t, d, _build.sm_count(x.device), stream)
     _build.check(op, err)
     _build.count_launch(op)
     return out

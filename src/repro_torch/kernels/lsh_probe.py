@@ -4,8 +4,9 @@ The port of ``repro.kernels.lsh_probe.lsh_probe_pallas``: column c is a
 candidate for query q iff the two share a bucket key in at least one band,
 ``hit[q, c] = any_b(qkeys[q, b] == ckeys[c, b])``. The gathered probe
 (``csrc/lsh_probe_gathered.cu``, the port of ``lsh_probe_gathered_pallas``)
-holds each query against its own (C', B) key rows, the survivors of the
-tiered stage's coarse pass.
+holds each query against its own C' key rows, the survivors of the tiered
+stage's coarse pass: a (Q, C', B) gathered tensor, or the resident (N, B)
+table read through (Q, C') positions.
 """
 from __future__ import annotations
 
@@ -56,25 +57,44 @@ def lsh_probe_cuda(qkeys_bits, ckeys_bits):
     return out
 
 
-def lsh_probe_gathered_cuda(qkeys_bits, ckeys_bits):
-    """Launch the gathered probe. ``qkeys_bits`` (Q, B) and ``ckeys_bits``
-    (Q, C', B): int32 bit-views of uint32 keys on one CUDA device ->
-    (Q, C') int32."""
-    _expect_keys("lsh_probe_gathered", "qkeys", qkeys_bits, 2)
-    _expect_keys("lsh_probe_gathered", "ckeys", ckeys_bits, 3)
+def lsh_probe_gathered_cuda(qkeys_bits, ckeys_bits, pos=None):
+    """Launch the gathered probe. ``qkeys_bits`` (Q, B) and ``ckeys_bits``:
+    int32 bit-views of uint32 keys on one CUDA device -> (Q, C') int32.
+
+    Without ``pos``, ``ckeys_bits`` (Q, C', B) holds each query's own rows.
+    With ``pos`` (Q, C') int64, ``ckeys_bits`` is the resident (N, B) table
+    and query q's row c' is ``ckeys_bits[pos[q, c']]``, read in place. A
+    position outside [-N, N) stops the kernel with a device trap, reported
+    as a CUDA error at the next synchronization."""
+    op = "lsh_probe_gathered"
+    _expect_keys(op, "qkeys", qkeys_bits, 2)
     q, b = qkeys_bits.shape
-    if ckeys_bits.shape[0] != q or ckeys_bits.shape[2] != b:
-        raise ValueError(f"lsh_probe_gathered: ckeys {tuple(ckeys_bits.shape)} "
-                         f"do not match qkeys {(q, b)}")
-    c = ckeys_bits.shape[1]
-    if q == 0 or c == 0 or b == 0:          # no band to share: no hit
+    if pos is None:
+        _expect_keys(op, "ckeys", ckeys_bits, 3)
+        if ckeys_bits.shape[0] != q or ckeys_bits.shape[2] != b:
+            raise ValueError(f"{op}: ckeys {tuple(ckeys_bits.shape)} do not match "
+                             f"qkeys {(q, b)}")
+        c, n_table = ckeys_bits.shape[1], q * ckeys_bits.shape[1]
+    else:
+        _expect_keys(op, "ckeys", ckeys_bits, 2)
+        if ckeys_bits.shape[1] != b:
+            raise ValueError(f"{op}: {b} query bands vs {ckeys_bits.shape[1]} table bands")
+        if pos.dim() != 2:
+            raise ValueError(f"{op}: pos must be 2-D, got {tuple(pos.shape)}")
+        _build.expect(op, pos, "pos", torch.int64, (q, pos.shape[1]))
+        c, n_table = pos.shape[1], ckeys_bits.shape[0]
+        if n_table == 0 and pos.numel():
+            raise IndexError(f"{op}: positions into an empty key table")
+    if q == 0 or c == 0 or (b == 0 and pos is None):   # no band to share: no hit
         return torch.zeros((q, c), dtype=torch.int32, device=qkeys_bits.device)
     out = torch.empty((q, c), dtype=torch.int32, device=qkeys_bits.device)
-    lib = _build.library("lsh_probe_gathered")
-    _check_bands("lsh_probe_gathered", b, lib.freyja_lsh_probe_gathered_max_bands())
+    lib = _build.library(op)
+    _check_bands(op, b, lib.freyja_lsh_probe_gathered_max_bands())
     stream = torch.cuda.current_stream(qkeys_bits.device).cuda_stream
     err = lib.freyja_lsh_probe_gathered(qkeys_bits.data_ptr(), ckeys_bits.data_ptr(),
-                                        out.data_ptr(), q, c, b, stream)
-    _build.check("lsh_probe_gathered", err)
-    _build.count_launch("lsh_probe_gathered")
+                                        None if pos is None else pos.data_ptr(),
+                                        out.data_ptr(), q, c, b, n_table,
+                                        _build.sm_count(qkeys_bits.device), stream)
+    _build.check(op, err)
+    _build.count_launch(op)
     return out

@@ -82,12 +82,19 @@ def lsh_probe(qkeys, ckeys):
     return lsh_probe_cuda(_key_bits(qkeys), _key_bits(ckeys))
 
 
-def lsh_probe_gathered(qkeys, ckeys):
+def lsh_probe_gathered(qkeys, ckeys, pos=None):
     """(Q, C') int32 hit mask of (Q, B) query keys against each query's own
-    (Q, C', B) gathered key rows (int64 holding uint32, or int32 bit-views)."""
+    C' key rows (int64 holding uint32, or int32 bit-views): ``ckeys``
+    (Q, C', B) gathered rows, or, with ``pos`` (Q, C') integer positions,
+    the resident (N, B) table whose rows ``ckeys[pos]`` the kernel reads in
+    place without a gathered copy. An out-of-range position raises, as the
+    indexing ``ckeys[pos]`` does (on the card at the next synchronization)."""
     if not _on_cuda(qkeys, "lsh_probe_gathered"):
-        return ref.lsh_probe_gathered_ref(_key_bits(qkeys), _key_bits(ckeys))
-    return lsh_probe_gathered_cuda(_key_bits(qkeys), _key_bits(ckeys))
+        keys = _key_bits(ckeys)
+        return ref.lsh_probe_gathered_ref(_key_bits(qkeys), keys if pos is None else keys[pos])
+    if pos is not None:
+        pos = pos.to(torch.int64).contiguous()
+    return lsh_probe_gathered_cuda(_key_bits(qkeys), _key_bits(ckeys), pos)
 
 
 def profile_distance(zq, wq, zc, wc):

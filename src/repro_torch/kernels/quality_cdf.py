@@ -20,15 +20,20 @@ def quality_cdf_cuda(j, k, mu_j: float, sigma_j: float, mu_k: float, sigma_k: fl
     op = "quality_cdf"
     _build.expect(op, j, "j", torch.float32, j.shape)
     _build.expect(op, k, "k", torch.float32, j.shape)
-    out = torch.empty_like(j)
-    if j.numel() == 0:
+    n = j.numel()
+    # out at j's offset mod 16 bytes, so that a view of j and k at one
+    # offset still takes the kernel's 16-byte loads and stores
+    phase = (j.data_ptr() // 4) % 4
+    out = torch.empty(n + phase, dtype=torch.float32, device=j.device)[phase:].view(j.shape)
+    if n == 0:
         return out
     lib = _build.library(op)
     stream = torch.cuda.current_stream(j.device).cuda_stream
-    err = lib.freyja_quality_cdf(j.data_ptr(), k.data_ptr(), out.data_ptr(), j.numel(),
+    err = lib.freyja_quality_cdf(j.data_ptr(), k.data_ptr(), out.data_ptr(), n,
                                  mu_j, sigma_j, *standardized_bounds(mu_j, sigma_j, lo, hi),
                                  mu_k, sigma_k, *standardized_bounds(mu_k, sigma_k, lo, hi),
-                                 stream)
+                                 _build.sm_count(j.device), stream)
     _build.check(op, err)
     _build.count_launch(op)
     return out
+

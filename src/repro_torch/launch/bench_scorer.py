@@ -1,4 +1,4 @@
-"""Time the fused scorers, gbdt_infer and lsh_probe at the main path's shapes.
+"""Time the port's kernels at the main path's shapes.
 
   PYTHONPATH=src python -m repro_torch.launch.bench_scorer --tag new
 
@@ -9,17 +9,27 @@ over float32, int8 and fp16 corpora. Runs the same ensemble over
 (6.4M, 23) random feature rows with ``gbdt_infer`` (the two-stage scorer's
 shape), and probes (64, B) random query keys against (100k, B) corpus keys
 with ``lsh_probe`` at B = 64 (the pruned plans' fine bands) and B = 16 (the
-tiered coarse digest). Inputs come from a fixed seed. Each kernel is held
-against its plain version bit for bit and timed with CUDA events as
+tiered coarse digest). Probes (64, 64) query keys against 64 x 2048
+survivor rows of a (100k, 64) table with ``lsh_probe_gathered``: pre-gathered,
+read in place through their positions where the kernel takes positions (from
+the table, and from a copy at a 4-byte offset, which takes the one-key
+variant), and the gather-then-probe route. Runs ``quality_cdf`` at the labels' (128, 391)
+and the exact metric's (64, 100k), beside an empty kernel's launch floor
+where the library has one. Inputs come from a fixed seed. Each kernel is
+held against its plain version bit for bit and timed with CUDA events as
 ``chip_smoke.py`` times kernels (L2 flushed, the launch queued behind a
-device spin). To compare two checkouts on one card, run this file by its
-path with ``PYTHONPATH`` pointing at each checkout's ``src`` in turn: the
-kernels are those of the ``repro_torch`` it imports. Prints the card and one
-JSON line.
+device spin).
+
+To compare two checkouts on one card, run this file by its path with
+``PYTHONPATH`` pointing at each checkout's ``src`` in turn: the kernels are
+those of the ``repro_torch`` it imports (parent, change, change, parent in
+one call; entries the imported checkout lacks are skipped). Prints the card
+and one JSON line.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 
@@ -28,15 +38,18 @@ import torch
 
 from repro_torch.core import features as FT
 from repro_torch.device import hashes_to_torch, to_bits
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, quality_cdf, ref
 from repro_torch.kernels.gbdt_infer import gbdt_infer_cuda
-from repro_torch.kernels.lsh_probe import lsh_probe_cuda
+from repro_torch.kernels.lsh_probe import lsh_probe_cuda, lsh_probe_gathered_cuda
 from repro_torch.kernels.profile_distance import (fused_score_cuda, fused_score_q_cuda,
                                                   quantize_profiles)
 
 Q, N, T, D = 64, 100_000, 50, 5
 GATHERED_M = {"fp32": 4096, "int8": 2048, "fp16": 2048}
 BANDS = {"lsh_probe": 64, "lsh_probe coarse": 16}
+SURVIVORS = 2048                    # the tiered plan's survivor budget at 100k
+CDF_SHAPES = {"quality_cdf labels": (128, 391), "quality_cdf exact metric": (Q, N)}
+CDF_PARAMS = (0.25, 0.19, 0.44, 0.28, 0.0, 1.0)
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
@@ -53,6 +66,15 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def launch_floor(device) -> None:
+    """Launch one empty kernel (``csrc/launch_floor.cu``) on ``device``'s
+    current stream through the kernels' ctypes path: the floor a
+    latency-bound launch is compared with. Counted as no kernel's launch."""
+    lib = _build.library("launch_floor")
+    _build.check("launch_floor",
+                 lib.freyja_launch_floor(torch.cuda.current_stream(device).cuda_stream))
 
 
 def main(argv=None):
@@ -78,6 +100,14 @@ def main(argv=None):
     flush = torch.empty(16 * 1024 * 1024, device=dev)
     wq_b = to_bits(wq)
     out = {"tag": args.tag}
+
+    def bench(name, fn, want, shape):
+        """Time ``fn`` and hold its result against ``want()`` (None: no
+        result to check)."""
+        out[name] = {"ms": time_ms(fn, args.reps, flush),
+                     "equal": want is None or bool(torch.equal(fn(), want())),
+                     "shape": list(shape)}
+
     for dtype, m in GATHERED_M.items():
         side, scale = quantize_profiles(z, dtype)
         zc, sc = torch.from_numpy(side).to(dev), torch.from_numpy(scale).to(dev)
@@ -86,28 +116,45 @@ def main(argv=None):
                                                    wc[idx].contiguous())):
             ws_b = to_bits(ws)
             if dtype == "fp32":
-                fn = lambda: fused_score_cuda(zq, wq_b, zs, ws_b, *g)
-                want = ref.fused_score_ref(zq, wq, zs, ws, *g)
+                bench(f"{dtype}_{geo}", lambda: fused_score_cuda(zq, wq_b, zs, ws_b, *g),
+                      lambda: ref.fused_score_ref(zq, wq, zs, ws, *g), zs.shape)
             else:
-                fn = lambda: fused_score_q_cuda(zq, wq_b, zs, sc, ws_b, *g)
-                want = ref.fused_score_q_ref(zq, wq, zs, sc, ws, *g)
-            equal = bool(torch.equal(fn(), want))
-            out[f"{dtype}_{geo}"] = {"ms": time_ms(fn, args.reps, flush), "equal": equal,
-                                     "shape": list(zs.shape)}
+                bench(f"{dtype}_{geo}", lambda: fused_score_q_cuda(zq, wq_b, zs, sc, ws_b, *g),
+                      lambda: ref.fused_score_q_ref(zq, wq, zs, sc, ws, *g), zs.shape)
     gen = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn((Q * N, FT.F_DIST), generator=gen, device=dev).abs_()
-    fn = lambda: gbdt_infer_cuda(x, *g)
-    out["gbdt_infer"] = {"ms": time_ms(fn, args.reps, flush),
-                         "equal": bool(torch.equal(fn(), ref.gbdt_infer_ref(x, *g))),
-                         "shape": list(x.shape)}
+    bench("gbdt_infer", lambda: gbdt_infer_cuda(x, *g), lambda: ref.gbdt_infer_ref(x, *g),
+          x.shape)
     del x
     for name, b in BANDS.items():
         qk = torch.randint(0, 40, (Q, b), generator=gen, device=dev, dtype=torch.int32)
         ck = torch.randint(0, 40, (N, b), generator=gen, device=dev, dtype=torch.int32)
-        fn = lambda: lsh_probe_cuda(qk, ck)
-        out[name] = {"ms": time_ms(fn, args.reps, flush),
-                     "equal": bool(torch.equal(fn(), ref.lsh_probe_ref(qk, ck))),
-                     "shape": [Q, N, b]}
+        bench(name, lambda: lsh_probe_cuda(qk, ck), lambda: ref.lsh_probe_ref(qk, ck), (Q, N, b))
+    qk = torch.randint(0, 40, (Q, 64), generator=gen, device=dev, dtype=torch.int32)
+    table = torch.randint(0, 40, (N, 64), generator=gen, device=dev, dtype=torch.int32)
+    pos = torch.randint(0, N, (Q, SURVIVORS), generator=gen, device=dev)
+    kg = table[pos]
+    want = ref.lsh_probe_gathered_ref(qk, kg)
+    bench("lsh_probe_gathered", lambda: lsh_probe_gathered_cuda(qk, kg), lambda: want, kg.shape)
+    bench("lsh_probe_gathered gather+probe", lambda: lsh_probe_gathered_cuda(qk, table[pos]),
+          lambda: want, kg.shape)
+    if "pos" in inspect.signature(lsh_probe_gathered_cuda).parameters:
+        bench("lsh_probe_gathered in place", lambda: lsh_probe_gathered_cuda(qk, table, pos),
+              lambda: want, kg.shape)
+        # the one-key variant: the same table at a 4-byte offset
+        tu = torch.empty(table.numel() + 1, dtype=torch.int32, device=dev)[1:]
+        tu = tu.view(table.shape).copy_(table)
+        bench("lsh_probe_gathered in place, unaligned", lambda: lsh_probe_gathered_cuda(qk, tu, pos),
+              lambda: want, kg.shape)
+        del tu
+    del kg
+    for name, shape in CDF_SHAPES.items():
+        j = torch.rand(shape, generator=gen, device=dev) * 0.5
+        k = torch.rand(shape, generator=gen, device=dev)
+        bench(name, lambda: quality_cdf.quality_cdf_cuda(j, k, *CDF_PARAMS),
+              lambda: ref.quality_cdf_ref(j, k, *CDF_PARAMS), shape)
+    if "launch_floor" in getattr(_build, "HARNESS", ()):
+        bench("launch floor", lambda: launch_floor(dev), None, ())
     print(json.dumps(out), flush=True)
     if not all(v["equal"] for k, v in out.items() if k != "tag"):
         raise SystemExit("bench_scorer: a kernel differs from its plain version")

@@ -58,8 +58,10 @@ def test_port_imports_without_jax_or_repro():
 
 
 def test_kernel_sources_are_keyed_by_content():
-    paths = {name: _build.library_path(name) for name in _build.KERNELS}
-    assert len(set(paths.values())) == len(_build.KERNELS)
+    libs = (*_build.KERNELS, *_build.HARNESS)
+    paths = {name: _build.library_path(name) for name in libs}
+    assert len(set(paths.values())) == len(libs)
+    assert set(_build._SIGNATURES) == set(libs)     # every library's entry points declared
     for name, path in paths.items():
         assert path.parent == _build.BUILD_DIR and name in path.name
         assert path == _build.library_path(name)      # stable for one source

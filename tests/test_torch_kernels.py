@@ -1,6 +1,11 @@
 """The port's kernels: plain versions against the JAX package's Pallas kernels
 (interpret mode) and oracles on the CPU, and the CUDA kernels against their
 plain versions on a card (``gpu`` marker; skipped on a host without one)."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,6 +159,59 @@ def test_lsh_probe_gathered_matches_pallas(q, c, b):
     assert np.array_equal(got.numpy(), np.asarray(want))
     assert bool(got.any()) == (q > 1 and c > 1)
     assert not got[-1].any() and not got[:, ::3].any()
+
+
+def _indexed_keys(q, c, n, b, seed):
+    """A resident (N, B) table with padded rows, (Q, B) query keys with a
+    padded query, and (Q, C') positions into the table: repeated within a
+    query and across queries, some negative (counted from the end, as torch
+    and numpy indexing do), and one planted hit."""
+    rng = np.random.default_rng(seed)
+    qk = rng.integers(0, 50, (q, b)).astype(np.uint32)
+    table = rng.integers(0, 50, (n, b)).astype(np.uint32)
+    table[::4] = PAD_CORPUS
+    pos = rng.integers(0, n, (q, c)).astype(np.int64)
+    pos[:, 1::3] = pos[:, :1]                              # repeats within a query
+    pos[-1, ::2] = pos[0, ::2]                             # ... and across queries
+    pos[:, 2::7] -= n                                      # negative positions
+    if c > 0:
+        table[pos[0, 0], 0] = qk[0, 0]                     # a hit, unless q == 1
+    if q > 1:
+        qk[-1] = PAD_QUERY
+    return qk, table, pos
+
+
+@pytest.mark.parametrize("q,c,n", [(3, 200, 50), (1, 33, 40), (2, 0, 10)])
+@pytest.mark.parametrize("b", [1, 7, 16, 64])
+def test_lsh_probe_gathered_indexed_matches_pallas(b, q, c, n):
+    """The indexed form, ``ops.lsh_probe_gathered(qkeys, table, pos)``,
+    equals the Pallas kernel over the gathered rows ``table[pos]``."""
+    qk, table, pos = _indexed_keys(q, c, n, b, seed=b * 100 + c)
+    got = ops.lsh_probe_gathered(hashes_to_torch(qk, "cpu"), hashes_to_torch(table, "cpu"),
+                                 torch.from_numpy(pos))
+    assert got.dtype == torch.int32 and got.shape == (q, c)
+    want = np.zeros((q, 0), np.int32) if c == 0 else np.asarray(
+        lsh_probe_gathered_pallas(jnp.asarray(qk), jnp.asarray(table[pos]), block_q=2,
+                                  block_c=256, interpret=True))
+    assert np.array_equal(got.numpy(), want)
+    assert bool(got.any()) == (c > 0)                      # the planted hit
+    assert not got.numpy()[table[pos][..., 0] == PAD_CORPUS].any()
+    assert q == 1 or not got[-1].any()                     # the padded query
+    # one function, two forms: the gathered rows give the same mask
+    gathered = ops.lsh_probe_gathered(hashes_to_torch(qk, "cpu"),
+                                      hashes_to_torch(table[pos], "cpu"))
+    assert torch.equal(got, gathered)
+
+
+@pytest.mark.parametrize("bad", ["past_end", "before_start"])
+def test_lsh_probe_gathered_indexed_rejects_out_of_range_positions(bad):
+    """A position outside [-N, N) raises as ``table[pos]`` does; it never
+    reads as a miss."""
+    qk, table, pos = _indexed_keys(2, 30, 20, 16, seed=5)
+    pos[1, 7] = 20 if bad == "past_end" else -21
+    with pytest.raises(IndexError):
+        ops.lsh_probe_gathered(hashes_to_torch(qk, "cpu"), hashes_to_torch(table, "cpu"),
+                               torch.from_numpy(pos))
 
 
 def _wide_keys(q, c, b, seed, gathered):
@@ -413,25 +471,83 @@ def test_lsh_probe_kernel_takes_unaligned_keys(cuda, b):
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,c,b", [(1, 1, 1), (3, 300, 16), (5, 257, 64),
                                    (64, 2048, 64), (2, 1000, 256), (3, 100, 12),
-                                   (2, 333, 7)])
+                                   (2, 333, 7), (4, 129, 4), (3, 200, 8), (2, 300, 32),
+                                   (3, 150, 100), (2, 260, 128)])
 def test_lsh_probe_gathered_kernel_matches_plain(cuda, q, c, b):
+    """Both forms: pre-gathered (Q, C', B) rows, and the indexed form over a
+    resident table (repeated and negative positions), each equal to the
+    plain version over the gathered rows. B % 4 == 0 up to 64 takes the
+    16-byte variant (1 to 16 vectors a row), the other B the one-key
+    variant (1 to 8 keys a lane)."""
     qk, ck = (hashes_to_torch(x, cuda) for x in _gathered_keys(q, c, b, seed=c))
     got = ops.lsh_probe_gathered(qk, ck)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.lsh_probe_gathered_ref(qk, ck))
+    qk, table, pos = _indexed_keys(q, c, 3 * c + 1, b, seed=c)
+    qk, table = hashes_to_torch(qk, cuda), hashes_to_torch(table, cuda)
+    pos = torch.from_numpy(pos).to(cuda)
+    got = ops.lsh_probe_gathered(qk, table, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.lsh_probe_gathered_ref(qk, table[pos]))
 
 
 @pytest.mark.gpu
-def test_lsh_probe_gathered_kernel_takes_unaligned_keys(cuda):
+@pytest.mark.parametrize("b", [64, 1, 4, 7, 8, 32, 100, 128, 256])
+def test_lsh_probe_gathered_kernel_takes_unaligned_keys(cuda, b):
     """Keys that are contiguous but not 16-byte aligned (a view at an odd
-    offset) take the kernel's one-key loads."""
-    qk, ck = (to_bits(hashes_to_torch(x, cuda)) for x in _gathered_keys(4, 300, 64, seed=9))
+    offset) take the kernel's one-key loads, 1 to 8 keys a lane."""
+    qk, ck = (to_bits(hashes_to_torch(x, cuda)) for x in _gathered_keys(4, 300, b, seed=9))
     view = torch.empty(ck.numel() + 1, dtype=torch.int32, device=cuda)[1:].view(ck.shape)
     view.copy_(ck)
     assert view.data_ptr() % 16 != 0
     got = lsh_probe_gathered_cuda(qk, view)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.lsh_probe_gathered_ref(from_bits(qk), from_bits(ck)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [7, 12, 16, 64, 256, 4, 8, 32, 100, 128])
+def test_lsh_probe_gathered_indexed_kernel_takes_unaligned_tables(cuda, b):
+    """A resident table that is contiguous but not 16-byte aligned (a view
+    at a 4-byte offset) takes the one-key loads, in the indexed form."""
+    qk, table, pos = _indexed_keys(9, 700, 300, b, seed=b)
+    qk, table = to_bits(hashes_to_torch(qk, cuda)), to_bits(hashes_to_torch(table, cuda))
+    view = torch.empty(table.numel() + 1, dtype=torch.int32, device=cuda)[1:].view(table.shape)
+    view.copy_(table)
+    assert view.data_ptr() % 16 != 0
+    pos = torch.from_numpy(pos).to(cuda)
+    got = lsh_probe_gathered_cuda(qk, view, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.lsh_probe_gathered_ref(qk, table[pos]))
+
+
+_OUT_OF_RANGE = """
+import sys, torch
+from repro_torch.kernels import ops
+qk = torch.zeros((3, {b}), dtype=torch.int32, device="cuda")
+table = torch.ones((50, {b}), dtype=torch.int32, device="cuda")
+pos = torch.zeros((3, 100), dtype=torch.int64, device="cuda")
+pos[2, 77] = {bad}
+try:
+    ops.lsh_probe_gathered(qk, table, pos)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,bad", [(64, 50), (64, -51), (7, 2 ** 40), (0, 50)])
+def test_lsh_probe_gathered_kernel_raises_on_out_of_range_position(cuda, b, bad):
+    """An out-of-range position traps the kernel and raises at the next
+    synchronization; it never reads as a miss. A trap leaves the process's
+    CUDA context unusable, so the launch runs in a child process."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _OUT_OF_RANGE.format(b=b, bad=bad)],
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 3, proc.stdout + proc.stderr
 
 
 @pytest.mark.gpu
@@ -544,8 +660,16 @@ def test_gbdt_infer_kernel_takes_an_offset_view(cuda, f):
     assert torch.equal(got, ref.gbdt_infer_ref(view, *gt))
 
 
+def _assert_equal_nan(got, want):
+    """Bit-equal, with NaN in the same places."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1,), (1000,), (7, 13), (128, 401)])
+@pytest.mark.parametrize("shape", [(0,), (1,), (3,), (5,), (1000,), (4097,), (7, 13),
+                                   (128, 401), (300_001,), (64, 100_000)])
 @pytest.mark.parametrize("s", [0.0, 0.25, 0.5])
 def test_quality_cdf_kernel_matches_plain(cuda, shape, s):
     r = np.random.default_rng(len(shape) + int(4 * s))
@@ -557,5 +681,24 @@ def test_quality_cdf_kernel_matches_plain(cuda, shape, s):
     got = ops.quality_cdf(*args)
     want = ref.quality_cdf_ref(*args)
     torch.cuda.synchronize()
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-6, equal_nan=True)
+    assert got.shape == want.shape
+    _assert_equal_nan(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off_j,off_k", [(1, 1), (2, 2), (3, 3), (1, 2), (0, 3)])
+@pytest.mark.parametrize("n", [2, 200_003])
+def test_quality_cdf_kernel_takes_offset_views(cuda, off_j, off_k, n):
+    """Views at an offset of 1-3 floats take the scalar head and tail
+    (one offset for both) or the scalar walk (different offsets); n = 2 is
+    below the 4-pair walk's size and takes the scalar walk at any offset."""
+    r = np.random.default_rng(n + off_j)
+    base_j = torch.from_numpy(r.uniform(-0.1, 0.6, n + 3).astype(np.float32)).to(cuda)
+    base_k = torch.from_numpy(r.uniform(-0.1, 1.1, n + 3).astype(np.float32)).to(cuda)
+    base_j[::7] = float("nan")
+    j, k = base_j[off_j:off_j + n], base_k[off_k:off_k + n]
+    args = (j, k, 0.25, 0.19, 0.44, 0.28, 0.0, 1.0)
+    got = ops.quality_cdf(*args)
+    want = ref.quality_cdf_ref(*args)
+    torch.cuda.synchronize()
+    _assert_equal_nan(got, want)

@@ -189,6 +189,33 @@ def test_tiered_priorities_match(q, m, b):
     np.testing.assert_allclose(got[both], want[both], rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("q,m,b,n", [(4, 37, 16, 90), (3, 300, 64, 120), (1, 1, 8, 5)])
+def test_tiered_priorities_take_positions(q, m, b, n):
+    """``pos=``: the fine probe reads the survivors' keys in place from the
+    resident table; the priorities equal the reference's over the gathered
+    keys ``table[pos]``, and the port's own pre-gathered call exactly."""
+    r = np.random.default_rng(q * m + b + n)
+    zq = r.normal(0, 0.3, (q, 21)).astype(np.float32)
+    zg = r.normal(0, 0.3, (q, m, 21)).astype(np.float32)
+    qk = r.integers(0, 30, (q, b)).astype(np.uint32)
+    table = r.integers(0, 30, (n, b)).astype(np.uint32)
+    table[::5] = PAD_CORPUS
+    pos = r.integers(0, n, (q, m)).astype(np.int64)
+    pos[:, 1::2] = pos[:, :1]                        # repeated survivors
+    valid = r.random((q, m)) < 0.8
+    want = np.asarray(jstages.tiered_priorities(
+        *map(jnp.asarray, (zq, qk, zg, table[pos], valid))))
+    args = (torch.from_numpy(zq), hashes_to_torch(qk, "cpu"), torch.from_numpy(zg))
+    got = stages.tiered_priorities(*args, hashes_to_torch(table, "cpu"),
+                                   torch.from_numpy(valid), pos=torch.from_numpy(pos))
+    assert np.array_equal(np.isfinite(got.numpy()), np.isfinite(want))
+    both = np.isfinite(want)
+    np.testing.assert_allclose(got.numpy()[both], want[both], rtol=0, atol=1e-6)
+    gathered = stages.tiered_priorities(*args, hashes_to_torch(table[pos], "cpu"),
+                                        torch.from_numpy(valid))
+    assert torch.equal(got, gathered)
+
+
 # ---------------------------------------------------------------------------
 # planner and cost model
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ Phases:
 1. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once);
 2. each kernel against its plain PyTorch version at ragged small shapes;
-3. three paths at real size, through the port's own entry points, each
+3. four paths at real size, through the port's own entry points, each
    with the launch counts set to 0 just before it and read just after it:
    a. the discovery query: train the join-quality model (T=50, D=5) on the
       default lake, ingest a 100k-column x 256-row scaled lake (profiles +
@@ -26,6 +26,19 @@ Phases:
       the distance tensor and the labels on the card; the two-stage scorer
       (distance tensor, then the ensemble) for the 64 queries against the
       100k-column profiles; the exact metric on a held-out lake.
+   d. the serving path: ingest the 100k-column lake into a fresh on-disk
+      ``CatalogStore`` (``add_batch``, one segment), open two
+      ``DiscoveryEngine``s from disk (float32 ``lsh``; int8 ``auto``, which
+      picks ``tiered`` at this size), each warmed over the batch ladder,
+      incremental, on the default column buckets, and serve 256 requests
+      (the 64 planted queries x 4) and 16 uploaded raw columns through a
+      ``RequestScheduler`` from 4 client threads; then a second handle
+      appends a 1,024-column table and the ``lsh`` engine follows it
+      through ``Executor.extended``. Every formed batch is held against
+      ``Executor.execute`` on the pinned version's executor (exactly) and
+      the plain pipeline (up to exact ties, equal ``n_candidates``); the
+      followed answers against a fresh executor over the same rows
+      (exactly); the retired version's device memory must be released.
    Each plan's ids are held against a plain pipeline over the same
    candidates (plain probes and plain scorers); the quantized top-10 must
    overlap the float32 one by at least 0.99. The model path's distances
@@ -46,9 +59,13 @@ failure raises and exits non-zero. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -70,8 +87,9 @@ from repro_torch.core.predictor import (POSITIVE_LABEL,           # noqa: E402
 from repro_torch.core.profiles import lake_profiles, profile_lake  # noqa: E402
 from repro_torch.device import from_bits, hashes_to_torch, to_bits  # noqa: E402
 from repro_torch.exec import stages                               # noqa: E402
-from repro_torch.exec.executor import Executor                    # noqa: E402
-from repro_torch.exec.plan import Planner, PlannerConfig, QueryPlan  # noqa: E402
+from repro_torch.exec.executor import Executor, pad_rows, pad_topk  # noqa: E402
+from repro_torch.exec.plan import (DEFAULT_COLUMN_BUCKETS, Planner,  # noqa: E402
+                                   PlannerConfig, QueryPlan)
 from repro_torch.kernels import _build, ops, ref                  # noqa: E402
 from repro_torch.kernels.gbdt_infer import gbdt_infer_cuda        # noqa: E402
 from repro_torch.kernels.lsh_probe import (PAD_CORPUS, PAD_QUERY,  # noqa: E402
@@ -83,6 +101,9 @@ from repro_torch.kernels.profile_distance import (                # noqa: E402
 from repro_torch.kernels.quality_cdf import quality_cdf_cuda      # noqa: E402
 from repro_torch.launch.bench_scorer import launch_floor          # noqa: E402
 from repro_torch.service import catalog                           # noqa: E402
+from repro_torch.service import (CatalogReader, CatalogStore,     # noqa: E402
+                                 DiscoveryEngine, DiscoveryRequest, EngineConfig,
+                                 RequestScheduler)
 from repro_torch.service.lsh import LSHConfig, LSHIndex           # noqa: E402
 
 # the main path's geometry
@@ -130,6 +151,15 @@ HELD_OUT_LAKE = LakeSpec(**_BENCH, seed=0)
 N_LABEL_QUERIES, N_EXACT_QUERIES = 128, 30
 LABEL_ATOL = 1e-6       # labels vs their plain version (erff vs torch.erf)
 CORR_GATE = 0.6         # prediction vs exact metric (tests/test_discovery.py:86)
+# the serving path: requests per planted query, uploaded raw columns, client
+# threads, and the appended table the follower picks up
+SERVE_REPEATS, N_UPLOADS, N_CLIENTS = 4, 16, 4
+FOLLOW_LAKE = ScaledLakeSpec(n_columns=1024, seed=6)
+PLAIN_ROWS = 64         # query rows per plain-pipeline chunk
+# the caching allocator hands out a cached block whole when splitting it
+# would leave under 1 MiB, so a freed tensor may release up to that much
+# more than its size rounded to 512 bytes
+ALLOC_SLACK = 1 << 20
 
 
 def log(msg: str) -> None:
@@ -889,6 +919,297 @@ def check_scale_path(run, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the serving path at real size
+# ---------------------------------------------------------------------------
+
+def _engine_config(**kw) -> EngineConfig:
+    # no result cache: every request of the repeated query set is computed
+    # (and held against the executor); the next-bucket background warm is
+    # off so the retired version's memory can be read without it
+    return EngineConfig(k=K, lsh=LSHConfig(n_bands=N_BANDS, n_coarse_bands=N_COARSE),
+                        warmup="serve", incremental=True,
+                        column_buckets=DEFAULT_COLUMN_BUCKETS, cache_entries=0,
+                        prewarm_fraction=2.0, **kw)
+
+
+def _uploads(n: int):
+    """Raw string columns a client uploads (values from a private pool)."""
+    r = np.random.default_rng(11)
+    return [[f"up{i}_{v}" for v in r.integers(0, 40 + 10 * i, 200)] for i in range(n)]
+
+
+def _serve(engine, requests, n_clients: int):
+    """Submit ``requests`` through a scheduler from ``n_clients`` threads;
+    return the responses in request order, every formed batch as
+    (requests, responses), the wall and the scheduler's counters."""
+    formed, real = [], engine.query_batch
+
+    def spy(reqs, **kw):
+        out = real(reqs, **kw)
+        formed.append((list(reqs), out))
+        return out
+
+    engine.query_batch = spy
+    futures = [None] * len(requests)
+    try:
+        with RequestScheduler(engine) as sch:
+            def client(c):
+                for i in range(c, len(requests), n_clients):
+                    futures[i] = sch.submit(requests[i], block=True)
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            responses = [f.result(timeout=300) for f in futures]
+            wall = time.perf_counter() - t0
+            stats = sch.stats()
+    finally:
+        engine.query_batch = real
+    return responses, formed, wall, stats
+
+
+def serve_path(run: dict, dev) -> dict:
+    """Ingest, open two engines from disk, serve through the scheduler,
+    follow an append. Returns what ``check_serve_path`` needs; the retired
+    version stays pinned until the check has read it."""
+    lake, model, qids = run["lake"], run["model"], run["qids"]
+    root = tempfile.mkdtemp(prefix="freyja_serve_")
+    out = dict(root=root, walls={})
+    t0 = time.perf_counter()
+    store = CatalogStore(root, n_perm=N_PERM, minhash_seed=0, device=dev)
+    n_tables = int(lake.batch.table_ids.max()) + 1
+    store.add_batch(lake.batch, [f"t{i}" for i in range(n_tables)])
+    out["walls"]["ingest"] = sync_wall(t0)
+    log(f"serve: ingested {lake.n_columns} columns x {lake.batch.row_budget} rows "
+        f"({n_tables} tables, one segment, P={N_PERM}) in {out['walls']['ingest']:.2f} s")
+
+    engines = {}
+    for name, cfg in (("lsh_fp32", _engine_config(mode="lsh")),
+                      ("auto_int8", _engine_config(mode="auto", profile_dtype="int8"))):
+        t0 = time.perf_counter()
+        eng = DiscoveryEngine.from_catalog(CatalogStore(root, device=dev), model, cfg,
+                                           device=dev)
+        out["walls"][f"open_{name}"] = sync_wall(t0)
+        engines[name] = eng
+        rep = eng.warmup_report
+        plan = eng.planner.plan(n_columns=eng._executor.n_columns, n_queries=64,
+                                mode=cfg.mode)
+        log(f"serve: engine {name} opened from disk in {out['walls'][f'open_' + name]:.2f} s "
+            f"(corpus bucket {eng._executor.n_columns}); warmup {rep['wall_ms']:.1f} ms: "
+            f"{ {k: rep[k] for k in ('scope', 'buckets', 'n_executables', 'cache_misses')} }; "
+            f"mode {cfg.mode!r} plans {plan.kind} at a 64-query batch")
+    out["engines"] = engines
+
+    uploads = _uploads(N_UPLOADS)
+    out["served"] = {}
+    for name, eng in engines.items():
+        reqs = ([DiscoveryRequest(name=f"q{int(q)}.{r}", column_id=int(q))
+                 for r in range(SERVE_REPEATS) for q in qids]
+                + [DiscoveryRequest(name=f"up{i}", values=v) for i, v in enumerate(uploads)])
+        st = eng._pin()          # the version these batches serve (released in the check)
+        responses, formed, wall, stats = _serve(eng, reqs, N_CLIENTS)
+        torch.cuda.synchronize()
+        lat = np.asarray([r.latency_ms for r in responses])
+        spans: dict = {}
+        for r in responses:                # the per-request phase trace
+            for sp in r.trace:
+                spans[sp["phase"]] = spans.get(sp["phase"], 0.0) + sp["ms"] / len(responses)
+        out["served"][name] = dict(state=st, responses=responses, formed=formed,
+                                   wall=wall, qps=len(reqs) / wall,
+                                   p50=float(np.percentile(lat, 50)),
+                                   p99=float(np.percentile(lat, 99)), stats=stats,
+                                   spans=spans)
+        log(f"serve: {name}: {len(reqs)} requests from {N_CLIENTS} clients in {wall:.3f} s "
+            f"= {len(reqs) / wall:.1f} queries/s; latency p50 {out['served'][name]['p50']:.2f} ms "
+            f"p99 {out['served'][name]['p99']:.2f} ms (scheduler-stamped queue + compute); "
+            f"{stats['batches']} batches, sizes {stats['batch_size_hist']}, plans "
+            f"{eng.stats()['plans']}; mean ms a request by phase "
+            f"{ {k: round(v, 3) for k, v in spans.items()} }")
+
+    # follow: a second handle appends one table; the lsh engine extends
+    eng = engines["lsh_fp32"]
+    eng.follow(CatalogReader(root))
+    old = eng._pin()
+    follow = generate_scaled_lake(FOLLOW_LAKE)
+    batch = dataclasses.replace(follow.batch, names=[f"f{i}" for i in range(follow.n_columns)],
+                                table_ids=np.zeros((follow.n_columns,), np.int32))
+    t0 = time.perf_counter()
+    CatalogStore(root, device=dev).add_batch(batch, ["follow"])
+    out["walls"]["append"] = sync_wall(t0)
+    t0 = time.perf_counter()
+    eng._maybe_follow(force=True)
+    out["walls"]["refresh"] = sync_wall(t0)
+    new = eng._pin()
+    reqs = ([DiscoveryRequest(name=f"f{int(q)}", column_id=int(q)) for q in qids]
+            + [DiscoveryRequest(name=f"fu{i}", values=v) for i, v in enumerate(uploads)]
+            + [DiscoveryRequest(name=f"new{i}", column_id=lake.n_columns + i)
+               for i in range(0, follow.n_columns, 128)])
+    out["follow"] = dict(old=old, new=new, requests=reqs,
+                         responses=eng.query_batch(reqs), refresh=eng.stats()["refresh"])
+    rs = out["follow"]["refresh"]
+    log(f"serve: follow: appended {follow.n_columns} columns in {out['walls']['append']:.2f} s; "
+        f"refresh v{old.version} -> v{new.version} ({'incremental' if rs['incremental'] else 'full'}) "
+        f"in {out['walls']['refresh'] * 1e3:.1f} ms (engine {rs['last_ms']:.1f} ms), "
+        f"{new.executor.bytes_uploaded} bytes uploaded (the full placement: "
+        f"{old.executor.bytes_uploaded} bytes)")
+    return out
+
+
+def _as_arrays(responses):
+    s = np.full((len(responses), K), -np.inf, np.float32)
+    i = np.full((len(responses), K), -1, np.int64)
+    for row, r in enumerate(responses):
+        for col, m in enumerate(r.matches):
+            s[row, col], i[row, col] = m.score, m.column_id
+    return s, i
+
+
+def _batch_inputs(engine, st, requests):
+    """A formed batch's padded executor inputs, as the engine builds them."""
+    zq, wq, sigq, tq, qid = engine._resolve(requests, st)
+    (zq, wq, sigq, tq, qid), q = pad_rows((zq, wq, sigq, tq, qid),
+                                          engine._pad_target(len(requests)))
+    plan = engine.planner.plan(n_columns=st.executor.n_columns, n_queries=zq.shape[0],
+                               mode=engine.config.mode)
+    return plan, (zq, wq, tq, qid, st.lsh.query_keys(sigq), st.lsh.coarse_query_keys(sigq)), q
+
+
+def plain_serve(ex, plan, zq, wq, tq, qid, qkeys, qcoarse, dev):
+    """The executor's pipeline with the plain probes and scorers, over the
+    executor's resident tensors (its sentinel pad rows included)."""
+    g = ex._gbdt
+    zq = torch.from_numpy(np.asarray(zq, np.float32)).to(dev)
+    wq = hashes_to_torch(wq, dev)
+    tq = torch.from_numpy(np.asarray(tq, np.int64)).to(dev)
+    qid = torch.from_numpy(np.asarray(qid, np.int64)).to(dev)
+    qk, qc = to_bits(hashes_to_torch(qkeys, dev)), to_bits(hashes_to_torch(qcoarse, dev))
+    side, scale, w, cids = ex._z, ex._zscale, ex._w, ex._cids
+    quantized = side.dtype != torch.float32
+
+    def score(zc, wc):
+        if quantized:
+            return ref.fused_score_q_ref(zq, wq, zc, scale, wc, *g)
+        return ref.fused_score_ref(zq, wq, zc, wc, *g)
+
+    spec = ex._local_spec(plan)
+    excl = stages.exclusion_mask(cids, ex._tids, tq, qid)
+    if plan.candidates == "all":
+        s = torch.where(excl, float("-inf"), score(side, w))
+        sc, ids = stages.merge_topk(s, cids, spec["k"])
+        n = stages.live_count(cids).expand(zq.shape[0])
+    elif plan.candidates == "tiered":
+        tr = reference_tiered(zq, qk, qc, side, scale, ex._ckeys, ex._coarse, excl, plan,
+                              ex.survivor_block)
+        gpos = tr["gpos"]
+        s = torch.where(tr["valid2"], score(side[gpos], w[gpos]), float("-inf"))
+        sc, ids = stages.merge_topk(s, cids[gpos], min(spec["k"], gpos.shape[1]))
+        n = tr["valid2"].sum(1)
+    else:
+        zf = side.to(torch.float32) * scale
+        prio = reference_candidates(plan.candidates, zq, qk, zf, ex._ckeys, excl)
+        pos, valid = stages.gather_candidates(prio, spec["budget"])
+        s = torch.where(valid, score(side[pos], w[pos]), float("-inf"))
+        sc, ids = stages.merge_topk(s, cids[pos], spec["k"])
+        n = valid.sum(1)
+    if ex._fp32_rows is not None:         # the exact float32 re-rank, plain
+        safe = ids.clamp(0, ex.n_live - 1)
+        zg = torch.from_numpy(np.asarray(ex._fp32_rows(safe.cpu().numpy()), np.float32)).to(dev)
+        s = torch.where(torch.isfinite(sc), ref.fused_score_ref(zq, wq, zg, w[safe], *g),
+                        float("-inf"))
+        sc, pos = stages.topk_stable(s, min(plan.k, s.shape[1]))
+        ids = torch.where(torch.isfinite(sc), torch.gather(ids, 1, pos), -1)
+    sc, ids = pad_topk(sc.cpu().numpy(), ids.cpu().numpy(), plan.k)
+    return sc, ids, n.cpu().numpy()
+
+
+def check_serve_path(serve: dict, dev, smi: str) -> dict:
+    """Hold every formed batch against the pinned executor (exactly) and
+    the plain pipeline, the followed answers against a fresh executor, and
+    the retired version's device memory; release every pin."""
+    out = {}
+    for name, rec in serve["served"].items():
+        eng, st = serve["engines"][name], rec["state"]
+        if any(r.cached for r in rec["responses"]):
+            raise AssertionError(f"{name}: a response came from the result cache")
+        n_rows = 0
+        for reqs, responses in rec["formed"]:
+            plan, args, q = _batch_inputs(eng, st, reqs)
+            sc, ids, n = st.executor.execute(plan, *args)
+            s_got, i_got = _as_arrays(responses)
+            if not (np.array_equal(i_got, ids[:q]) and np.array_equal(s_got, sc[:q])):
+                raise AssertionError(f"{name}: a response differs from Executor.execute "
+                                     f"on its pinned version")
+            if [r.n_candidates for r in responses] != n[:q].tolist():
+                raise AssertionError(f"{name}: n_candidates differs from the executor's")
+            for lo in range(0, len(args[0]), PLAIN_ROWS):
+                part = [a[lo:lo + PLAIN_ROWS] for a in args]
+                s_ref, i_ref, n_ref = plain_serve(st.executor, plan, *part, dev)
+                _same_ranking(f"{name} plain", torch.from_numpy(s_ref), torch.from_numpy(i_ref),
+                              sc[lo:lo + PLAIN_ROWS], ids[lo:lo + PLAIN_ROWS])
+                if not np.array_equal(n_ref, n[lo:lo + PLAIN_ROWS]):
+                    raise AssertionError(f"{name}: n_scored differs from the plain pipeline's")
+            n_rows += q
+        if n_rows != len(rec["responses"]):
+            raise AssertionError(f"{name}: {n_rows} rows checked of {len(rec['responses'])}")
+        out[name] = dict(batches=len(rec["formed"]), plan=eng.stats()["last_plan"]["kind"])
+    log(f"check: serve: every formed batch equals Executor.execute on its pinned version "
+        f"and the plain pipeline (up to exact ties, equal n_candidates): {out}")
+
+    f, eng = serve["follow"], serve["engines"]["lsh_fp32"]
+    new, old = f["new"], f["old"]
+    if not f["refresh"]["incremental"] or new.version <= old.version:
+        raise AssertionError(f"serve: the follower did not refresh incrementally: {f['refresh']}")
+    fresh = Executor(new.z, new.w, eng.model.gbdt.astuple(),
+                     table_ids=new.snapshot.table_ids, band_keys=new.lsh.keys,
+                     coarse_keys=new.lsh.coarse, n_padded=new.executor.n_columns, device=dev)
+    plan, args, q = _batch_inputs(eng, new, f["requests"])
+    want = fresh.execute(plan, *args)
+    got = new.executor.execute(plan, *args)
+    s_resp, i_resp = _as_arrays(f["responses"])
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)) or not (
+            np.array_equal(i_resp, want[1][:q]) and np.array_equal(s_resp, want[0][:q])):
+        raise AssertionError("serve: the extended executor differs from a fresh one")
+    if [r.n_candidates for r in f["responses"]] != want[2][:q].tolist():
+        raise AssertionError("serve: the followed n_candidates differ from a fresh executor's")
+    fresh.close()
+    del fresh
+
+    # the retired version: released by its last pin, its rows freed
+    held = old.executor._rows_bundle.arrays
+    rows = [t for k, t in held.items() if k != "zscale" and t is not None]
+    expect = sum(-(-t.nbytes // 512) * 512 for t in rows)
+    slack = ALLOC_SLACK * len(rows)
+    del held, rows
+    eng._release(old)          # the engine's head moved on: still open
+    if old.executor.closed:
+        raise AssertionError("serve: a version still pinned by a batch was closed")
+    allocated = (torch.cuda.memory_allocated if dev.type == "cuda"
+                 else lambda _: 0)    # a host rehearsal has no device allocator
+    torch.cuda.synchronize()
+    before = allocated(dev)
+    for name, rec in serve["served"].items():
+        serve["engines"][name]._release(rec["state"])
+    torch.cuda.synchronize()
+    freed = before - allocated(dev)
+    if not old.executor.closed or (dev.type == "cuda"
+                                   and not expect <= freed <= expect + slack):
+        raise AssertionError(f"serve: retiring v{old.version} freed {freed} bytes; its "
+                             f"resident corpus holds {expect} (+ up to {slack} of "
+                             f"allocator blocks)")
+    eng._release(new)
+    for e in serve["engines"].values():
+        e.close()
+    shutil.rmtree(serve["root"], ignore_errors=True)
+    log(f"check: serve: the followed engine's answers equal a fresh executor's exactly; "
+        f"retiring v{old.version} closed its executor and freed {freed} bytes "
+        f"(resident corpus {expect}); card {smi}")
+    return dict(out, freed=freed, expected=expect)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernels at the main path's shapes and inputs
 # ---------------------------------------------------------------------------
 
@@ -1212,13 +1533,25 @@ def main() -> int:
                                  "fused_score"), lambda: scale_path(run, dev))
     _, model = counted("model", ("profile_distance", "gbdt_infer", "quality_cdf"),
                        lambda: model_path(run, dev))
+    served, serve_counts = counted(
+        "serve", ("fused_score", "fused_score_q", "minhash", "lsh_probe",
+                  "lsh_probe_gathered"), lambda: serve_path(run, dev))
     counts = {"discovery": discovery, "scale": scale, "model": model}
     launches = {k: counts[PATH_OF[k]][k] for k in _build.KERNELS}
     t0 = time.perf_counter()
     check_main_path(run, dev)
     check_scale_path(run, dev)
     check_model_path(run, dev)
+    check_serve_path(served, dev, smi)
     log(f"phase 3 check: {time.perf_counter() - t0:.2f} s")
+    log(f"serve summary ({smi}): ingest {served['walls']['ingest']:.2f} s; "
+        + "; ".join(f"{name} warmup {served['engines'][name].warmup_report['wall_ms']:.1f} ms, "
+                    f"{rec['qps']:.1f} queries/s, p50 {rec['p50']:.2f} ms, "
+                    f"p99 {rec['p99']:.2f} ms" for name, rec in served["served"].items())
+        + f"; refresh {served['walls']['refresh'] * 1e3:.1f} ms, "
+        f"{served['follow']['new'].executor.bytes_uploaded} bytes uploaded "
+        f"(full placement {served['follow']['old'].executor.bytes_uploaded}); "
+        f"launches {serve_counts}")
 
     # phase 4: kernels at the main path's shapes
     t0 = time.perf_counter()

@@ -44,7 +44,8 @@ def rank(index: DiscoveryIndex, query_ids: np.ndarray, k: int = 10,
     executor = Executor(index.profiles.zscored, index.profiles.words,
                         index.model.gbdt.astuple(), table_ids=index.table_ids,
                         device=device)
-    plan = Planner(PlannerConfig(k=k)).plan(n_columns=index.n_columns, mode="full")
+    plan = Planner(PlannerConfig(k=k)).plan(n_columns=index.n_columns,
+                                            n_queries=len(qid), mode="full")
     zq = index.profiles.zscored[qid].astype(np.float32)
     wq = index.profiles.words[qid]
     if exclude_same_table and index.table_ids is not None:

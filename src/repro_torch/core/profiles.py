@@ -43,8 +43,44 @@ class LakeProfiles:
     def zscored(self) -> np.ndarray:
         return (self.numeric - self.mean) / self.std
 
+    def zscored_view(self) -> "ZscoreView":
+        """Lazy row-gather view of :attr:`zscored` — z-scores only the
+        rows actually indexed, so a memmapped lake never materializes a
+        lake-sized float32 matrix (the engine's quantized-sidecar path)."""
+        return ZscoreView(self.numeric, self.mean, self.std)
+
     def nbytes(self) -> int:
         return self.numeric.nbytes + self.words.nbytes + self.n_rows.nbytes
+
+
+class ZscoreView:
+    """``(numeric[idx] - mean) / std`` computed per access.
+
+    Indexing accepts anything ``numeric`` does — an int row, a slice, or a
+    (possibly 2-D) fancy-index array — and always returns fresh float32; the
+    backing ``numeric`` may be a read-only segment memmap, so reads page in
+    only the touched rows. Duck-compatible with the float32 matrix the
+    engine's eager path keeps (``shape`` / ``len`` / ``__getitem__``).
+    """
+
+    def __init__(self, numeric, mean, std):
+        self.numeric = numeric
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.numeric.shape)
+
+    @property
+    def dtype(self):
+        return np.dtype(np.float32)
+
+    def __len__(self) -> int:
+        return int(self.numeric.shape[0])
+
+    def __getitem__(self, idx) -> np.ndarray:
+        return (np.asarray(self.numeric[idx], np.float32) - self.mean) / self.std
 
 
 def _masked_stats(x, valid, nf):

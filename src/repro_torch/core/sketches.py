@@ -3,7 +3,8 @@
 The exact path labels the synthetic ground truth and validates the
 predictor. Two implementations, as in ``repro.core.sketches``:
 
-* numpy — :func:`pack_sketches`, a verbatim copy;
+* numpy — :func:`intersections_np`, :func:`pair_metrics_np` and
+  :func:`pack_sketches`, verbatim copies;
 * torch batched (folded uint32 hashes held in int64, padded distinct
   arrays) — :func:`batch_exact_metrics`, all-pairs by a batched
   ``searchsorted`` + count gather.
@@ -22,6 +23,25 @@ from repro_torch.core.ingest import ColumnSketch, fold32
 _PROBE_ELEMS = 1 << 24
 
 
+def intersections_np(a: ColumnSketch, b: ColumnSketch) -> tuple[int, int]:
+    """(multiset intersection, set intersection) of two sketches."""
+    common, ia, ib = np.intersect1d(a.values, b.values, assume_unique=True,
+                                    return_indices=True)
+    multi = int(np.minimum(a.counts[ia], b.counts[ib]).sum())
+    return multi, int(common.shape[0])
+
+
+def pair_metrics_np(a: ColumnSketch, b: ColumnSketch) -> dict:
+    multi, inter_set = intersections_np(a, b)
+    ca, cb = a.cardinality, b.cardinality
+    j = multi / max(a.n_rows + b.n_rows, 1)
+    k = min(ca, cb) / max(max(ca, cb), 1)
+    jac = inter_set / max(ca + cb - inter_set, 1)
+    cont = inter_set / max(ca, 1)
+    return {"j_multi": j, "k": k, "jaccard": jac, "containment": cont,
+            "inter_multi": multi, "inter_set": inter_set}
+
+
 @dataclasses.dataclass
 class PackedSketches:
     """Padded distinct-value arrays for device-side exact metrics.
@@ -36,6 +56,9 @@ class PackedSketches:
     counts: np.ndarray
     card: np.ndarray
     n_rows: np.ndarray
+
+    def nbytes(self) -> int:
+        return self.values.nbytes + self.counts.nbytes + self.card.nbytes + self.n_rows.nbytes
 
 
 def pack_sketches(sketches: list[ColumnSketch], k_max: int | None = None) -> PackedSketches:

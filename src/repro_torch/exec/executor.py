@@ -17,20 +17,44 @@ float32-exact whatever the resident dtype.
 
 The returned contract is the JAX package's: numpy ``(scores (Q, k), global
 ids (Q, k), n_scored (Q,))``, padded with -inf / -1 when fewer than k
-columns are rankable, with ``n_scored`` the number of columns the GBDT
+columns are rankable, with ``n_scored`` the number of live columns the GBDT
 actually scored per query.
+
+**Lifecycle.** The serving engine keeps one executor per catalog version:
+
+* ``n_padded=`` pads the resident corpus up to a column bucket with inert
+  sentinel rows (profile 0, words ``HASH_SENTINEL``, table id -2, column id
+  -1, band keys ``PAD_CORPUS``); the exclusion mask scores them -inf, so no
+  plan ranks or counts them;
+* :meth:`Executor.extended` builds the successor of an append-only delta:
+  only the new rows cross the host-device link, and the live prefix is
+  copied on the device into the successor's own tensors (a new bucket's
+  size when the delta crosses one). A predecessor's tensors are never
+  written, so a batch still running on it reads what it pinned;
+* the row tensors and the GBDT tensors live in refcounted
+  :class:`PlacementBundle` objects: :meth:`Executor.close` releases them (the
+  GBDT bundle, shared by every successor, frees at its last release), and
+  ``execute`` after close raises;
+* :meth:`Executor.aot_compile` is the warmup: it runs every (plan, padded
+  batch) once on sentinel queries, so every kernel library is loaded and
+  every first-contact cost is paid before traffic. The port has no
+  executables to serialize; the kernels it builds stay in ``_build``'s
+  content-keyed build directory across processes.
 """
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
 
+from repro_torch.core import features as FT
 from repro_torch.core.predictor import gbdt_to_torch
-from repro_torch.device import hashes_to_torch, resolve_device, to_bits
+from repro_torch.device import from_bits, hashes_to_torch, resolve_device, to_bits
 from repro_torch.exec import stages
 from repro_torch.exec.plan import QueryPlan
+from repro_torch.kernels.lsh_probe import PAD_CORPUS, PAD_QUERY
 from repro_torch.kernels.profile_distance import dequantize, quantize_profiles
 
 # quantized scans over-fetch this multiple of k, then an exact float32
@@ -38,6 +62,66 @@ from repro_torch.kernels.profile_distance import dequantize, quantize_profiles
 # scores are threshold-discontinuous, so even fp16's ~5e-4 profile error
 # flips near-boundary ranks
 RESCORE_MULT = 4
+
+
+# pad-row fills of the resident tensors, by tensor (the int32 bit-views of
+# the band keys hold PAD_CORPUS as its signed 32-bit pattern)
+_PAD_BITS = int(np.uint32(PAD_CORPUS).view(np.int32))
+_FILL = {"z": 0, "w": FT.HASH_SENTINEL, "tids": -2, "cids": -1,
+         "ckeys": _PAD_BITS, "coarse": _PAD_BITS}
+
+
+class PlacementBundle:
+    """Refcounted bundle of device tensors.
+
+    Successors built by :meth:`Executor.extended` retain their
+    predecessor's GBDT bundle instead of placing the parameters again,
+    while each version's row tensors live in a bundle owned by one
+    executor (or shared outright by a zero-row successor). A tensor frees
+    when the last holder releases; the class-level live count gives leak
+    tests a direct handle on how many placements exist.
+    """
+
+    _live = 0
+    _live_lock = threading.Lock()
+
+    def __init__(self, arrays: dict):
+        self.arrays = dict(arrays)
+        self.refs = 1
+        self._lock = threading.Lock()
+        with PlacementBundle._live_lock:
+            PlacementBundle._live += 1
+
+    def retain(self) -> "PlacementBundle":
+        with self._lock:
+            if self.refs <= 0:
+                raise RuntimeError("retain() on a released bundle")
+            self.refs += 1
+        return self
+
+    def release(self) -> None:
+        with self._lock:
+            self.refs -= 1
+            if self.refs > 0:
+                return
+            self.arrays.clear()
+        with PlacementBundle._live_lock:
+            PlacementBundle._live -= 1
+
+
+def live_placement_bundles() -> int:
+    """Placement bundles currently holding tensors: bounded by (live
+    versions) x (bundles per executor) when nothing leaks."""
+    with PlacementBundle._live_lock:
+        return PlacementBundle._live
+
+
+def _pad_np(a: np.ndarray, n: int, fill) -> np.ndarray:
+    """``a`` with its leading axis padded up to ``n`` rows of ``fill``."""
+    if a.shape[0] >= n:
+        return a
+    pad = np.full((n - a.shape[0],) + a.shape[1:], fill, a.dtype)
+    return np.concatenate([a, pad])
 
 
 def _rescore_exact(zq, wq, zg, wg, gbdt_tuple, sc_scan, ids, k: int):
@@ -81,6 +165,8 @@ class Executor:
     resident sidecar; a caller that already quantized passes the sidecar as
     ``z`` and its scale as ``z_scale``. ``fp32_rows`` (``ids -> (..., F)
     float32``) overrides the host float32 source of the exact re-rank.
+    ``n_padded`` pads the corpus to that many rows with sentinel rows;
+    ``events`` is a sink with ``publish(type, **payload)``.
     """
 
     def __init__(self, z: np.ndarray, w: np.ndarray, gbdt_tuple, *,
@@ -88,10 +174,14 @@ class Executor:
                  band_keys: np.ndarray | None = None,
                  coarse_keys: np.ndarray | None = None,
                  profile_dtype: str = "fp32", z_scale=None, fp32_rows=None,
-                 survivor_block: int = 32, device=None):
+                 survivor_block: int = 32, events=None,
+                 n_padded: int | None = None, device=None):
         self.device = resolve_device(device)
-        dev = self.device
-        self.n_columns = int(z.shape[0])
+        # n_live: the true resident columns; n_columns: the (bucket-padded)
+        # corpus axis every plan clamp is computed from
+        self.n_live = int(z.shape[0])
+        self.n_columns = (max(int(n_padded), self.n_live) if n_padded is not None
+                          else self.n_live)
         self.profile_dtype = str(profile_dtype)
         self.survivor_block = int(survivor_block)
         if z_scale is not None:
@@ -108,21 +198,249 @@ class Executor:
             self._fp32_rows = zf_host.__getitem__
         else:
             self._fp32_rows = None
-        self._gbdt = gbdt_to_torch(gbdt_tuple, dev)
-        self._z = torch.from_numpy(z_res).to(dev)
-        self._zscale = torch.from_numpy(scale).to(dev)
-        self._w = hashes_to_torch(w, dev)
+        n = self.n_columns
         tids = (np.asarray(table_ids, np.int32) if table_ids is not None
-                else np.zeros((self.n_columns,), np.int32))
-        self._tids = torch.from_numpy(tids.astype(np.int64)).to(dev)
-        self._cids = torch.arange(self.n_columns, device=dev)
-        # the probes test key equality only: the resident keys are int32
-        # bit-views, built once, so no probe call converts the lake's keys
-        self._ckeys = (to_bits(hashes_to_torch(band_keys, dev))
-                       if band_keys is not None else None)
-        self._coarse = (to_bits(hashes_to_torch(coarse_keys, dev))
-                        if coarse_keys is not None else None)
+                else np.zeros((self.n_live,), np.int32))
+        # host -> device bytes this placement spent (a successor built by
+        # ``extended`` counts only its delta rows)
+        self.bytes_uploaded = 0
+        rows = dict(
+            z=self._upload(_pad_np(z_res, n, _FILL["z"])),
+            w=from_bits(self._upload(_pad_np(_bits(w), n, -1))),   # -1: HASH_SENTINEL
+            tids=self._upload(_pad_np(tids, n, _FILL["tids"])).to(torch.int64),
+            cids=_live_ids(self.n_live, n, self.device),
+            # the probes test key equality only: the resident keys are int32
+            # bit-views, so no probe call converts the lake's keys
+            ckeys=(self._upload(_pad_np(_bits(band_keys), n, _PAD_BITS))
+                   if band_keys is not None else None),
+            coarse=(self._upload(_pad_np(_bits(coarse_keys), n, _PAD_BITS))
+                    if coarse_keys is not None else None))
+        self._zscale = self._upload(scale)
+        self._adopt_rows(rows, PlacementBundle(dict(rows, zscale=self._zscale)))
+        self._gbdt = gbdt_to_torch(gbdt_tuple, self.device)
+        self._gbdt_bundle = PlacementBundle(
+            {f"gbdt{i}": a for i, a in enumerate(self._gbdt[:3])})
+        self._init_serving(events, warm=set(), seen=set())
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:              # a read-only segment memmap
+            a = a.copy()
+        self.bytes_uploaded += int(a.nbytes)
+        return torch.from_numpy(a).to(self.device)
+
+    def _adopt_rows(self, rows: dict, bundle: PlacementBundle) -> None:
+        self._z, self._w = rows["z"], rows["w"]
+        self._tids, self._cids = rows["tids"], rows["cids"]
+        self._ckeys, self._coarse = rows["ckeys"], rows["coarse"]
+        self._rows_bundle = bundle
+
+    def _rows(self) -> dict:
+        return dict(z=self._z, w=self._w, tids=self._tids, cids=self._cids,
+                    ckeys=self._ckeys, coarse=self._coarse)
+
+    def _init_serving(self, events, warm: set, seen: set) -> None:
+        # warmup's dispatch table: the (pipeline, batch, corpus, statics)
+        # units ``aot_compile`` ran; a successor inherits it
+        self._warm = warm
+        self._seen_shapes = seen
+        self._dispatch_stats = {"aot": 0, "fallback": 0}
+        # observability: a duck-typed event sink; the first execution of a
+        # (plan, batch shape) is a visible compile_begin/compile_end pair
+        self._events = events
+        self._closed = False
         self._tls = threading.local()
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def close(self) -> None:
+        """Release the corpus's device tensors. The engine closes a
+        version's executor when the last batch that pinned it unpins it,
+        after that batch's results reached the host. Idempotent; ``execute``
+        after close raises."""
+        if self._closed:
+            return
+        self._closed = True
+        self._z = self._w = self._cids = self._tids = self._ckeys = None
+        self._zscale = self._coarse = None
+        self._rows_bundle.release()
+        self._gbdt_bundle.release()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    # -- delta placement ----------------------------------------------------
+
+    def extended(self, z_rows, w_rows, *, table_ids, band_keys=None,
+                 coarse_keys=None, fp32_rows=None,
+                 n_padded: int | None = None) -> "Executor":
+        """Successor executor for an append-only corpus delta.
+
+        Only the new rows cross the host-device link. The successor gets
+        tensors of its own: the predecessor's live prefix copied on the
+        device, then the delta rows, then sentinel padding up to
+        ``n_padded`` (by default the predecessor's corpus size, or the live
+        count if the delta outgrows it), so a new bucket places the corpus
+        again at its size. A zero-row delta at the same size shares the
+        predecessor's tensors outright. The GBDT tensors are shared
+        (refcounted), and so are the warmed units, so a successor serves
+        warmed shapes without a first-contact run.
+
+        ``z_rows`` must be float32 rows z-scored under the predecessor's
+        statistics; a quantized corpus takes the engine's full rebuild.
+        """
+        if self._closed:
+            raise RuntimeError("executor is closed")
+        if self.profile_dtype != "fp32":
+            raise NotImplementedError(
+                "delta placement requires a float32-resident corpus; "
+                "quantized corpora take the full-rebuild path")
+        if (self._ckeys is None) != (band_keys is None):
+            raise ValueError("band_keys must match the predecessor's")
+        if (self._coarse is None) != (coarse_keys is None):
+            raise ValueError("coarse_keys must match the predecessor's")
+        z_rows = np.asarray(z_rows, np.float32)
+        d = int(z_rows.shape[0])
+        n_live2 = self.n_live + d
+        n_pad2 = (max(int(n_padded), n_live2) if n_padded is not None
+                  else max(self.n_columns, n_live2))
+        ex = object.__new__(Executor)
+        ex.device, ex.profile_dtype = self.device, self.profile_dtype
+        ex.survivor_block = self.survivor_block
+        ex.n_live, ex.n_columns = n_live2, n_pad2
+        ex._fp32_rows = fp32_rows
+        ex._zscale = self._zscale
+        ex._gbdt = self._gbdt
+        ex._gbdt_bundle = self._gbdt_bundle.retain()
+        ex.bytes_uploaded = 0
+        if d == 0 and n_pad2 == self.n_columns:
+            ex._adopt_rows(self._rows(), self._rows_bundle.retain())
+        else:
+            delta = dict(
+                z=ex._upload(z_rows),
+                w=from_bits(ex._upload(_bits(w_rows))),
+                tids=ex._upload(np.asarray(table_ids, np.int32)).to(torch.int64),
+                cids=torch.arange(self.n_live, n_live2, device=self.device),
+                ckeys=None if band_keys is None else ex._upload(_bits(band_keys)),
+                coarse=None if coarse_keys is None else ex._upload(_bits(coarse_keys)))
+            rows = {k: None if old is None else
+                    _grown(old, self.n_live, delta[k], n_pad2, _FILL[k])
+                    for k, old in self._rows().items()}
+            ex._adopt_rows(rows, PlacementBundle(dict(rows, zscale=ex._zscale)))
+        ex._init_serving(self._events, warm=set(self._warm), seen=set(self._seen_shapes))
+        return ex
+
+    # -- warmup -------------------------------------------------------------
+
+    def aot_compile(self, entries, *, n_columns: int | None = None) -> dict:
+        """Warm every ``(plan, padded_batch)`` pair in ``entries``: run each
+        pipeline unit once on sentinel queries (zero profiles, sentinel
+        words, ``PAD_QUERY`` band keys), so every kernel library is loaded,
+        every first-contact cost is paid, and the first real batch of a
+        warmed shape is dispatched as warm with no compile attribution.
+
+        ``n_columns`` warms for another corpus size, the background
+        next-bucket warm ahead of a crossing: the units run on a stand-in
+        successor of that size (this executor's rows, copied on the device
+        and padded), which is closed afterwards; the warmed units land in
+        this executor's table, which successors inherit.
+
+        Publishes ``compile_begin``/``compile_end`` (``source="warmup"``) and
+        ``executable_cache_miss`` (with a ``remaining`` countdown) per unit.
+        Plans this corpus cannot serve count as skips. Returns a report."""
+        if self._closed:
+            raise RuntimeError("executor is closed")
+        target = self
+        if n_columns is not None and int(n_columns) != self.n_columns:
+            target = self.extended(
+                np.zeros((0, self._z.shape[1]), np.float32),
+                np.zeros((0, self._w.shape[1]), np.uint32),
+                table_ids=np.zeros((0,), np.int32),
+                band_keys=(None if self._ckeys is None
+                           else np.zeros((0, self._ckeys.shape[1]), np.uint32)),
+                coarse_keys=(None if self._coarse is None
+                             else np.zeros((0, self._coarse.shape[1]), np.uint32)),
+                n_padded=int(n_columns))
+        try:
+            units, planned, skipped = {}, [], 0
+            for plan, q in entries:
+                key = target._unit(plan, int(q))
+                if key is None:
+                    skipped += 1
+                    continue
+                planned.append((plan, int(q)))
+                units.setdefault(key, (plan, int(q)))
+            report = {"n_plans": len(planned), "n_executables": len(units),
+                      "skipped_plans": skipped, "cache_hits": 0, "cache_misses": 0,
+                      "already_warm": 0, "compile_ms": 0.0}
+            remaining = len(units)
+            for key, (plan, q) in units.items():
+                remaining -= 1
+                if key in self._warm:
+                    report["already_warm"] += 1
+                    continue
+                if self._events is not None:
+                    self._events.publish("compile_begin", plan=key[0], grid=[],
+                                         n_queries=q, k=0, source="warmup")
+                t0 = time.perf_counter()
+                target._warm_run(plan, q)
+                ms = (time.perf_counter() - t0) * 1e3
+                report["cache_misses"] += 1
+                report["compile_ms"] += ms
+                if self._events is not None:
+                    self._events.publish("executable_cache_miss", name=key[0],
+                                         n_queries=q, remaining=remaining)
+                    self._events.publish("compile_end", plan=key[0], grid=[],
+                                         n_queries=q, k=0, ms=ms, source="warmup")
+                self._warm.add(key)
+            for plan, q in planned:
+                self._seen_shapes.add((plan.kind, plan.k, plan.budget, plan.grid, q))
+        finally:
+            if target is not self:
+                target.close()
+        return report
+
+    def _unit(self, plan: QueryPlan, q: int):
+        """Dispatch key of the pipeline ``plan`` runs at padded batch ``q``,
+        or None when this corpus cannot serve the plan."""
+        if self.n_live == 0 or q <= 0:
+            return None
+        if plan.candidates != "all" and self._ckeys is None:
+            return None
+        if plan.candidates == "tiered" and self._coarse is None:
+            return None
+        statics = self._local_spec(plan)
+        name = {"all": "_local_all", "tiered": "_local_tiered"}.get(
+            plan.candidates, "_local_pruned")
+        if name == "_local_pruned":
+            statics = dict(statics, kind=plan.candidates)
+        return (name, int(q), self.n_columns, tuple(sorted(statics.items())),
+                self._fp32_rows is not None)
+
+    def _warm_run(self, plan: QueryPlan, q: int) -> None:
+        """One execution of ``plan`` on ``q`` sentinel queries, with its
+        results brought to the host as a served batch's are."""
+        zq = np.zeros((q, self._z.shape[1]), np.float32)
+        wq = np.full((q, self._w.shape[1]), FT.HASH_SENTINEL, np.uint32)
+        none = np.full((q,), -1, np.int32)
+        qkeys = (np.full((q, self._ckeys.shape[1]), PAD_QUERY, np.uint32)
+                 if self._ckeys is not None else None)
+        qcoarse = (np.full((q, self._coarse.shape[1]), PAD_QUERY, np.uint32)
+                   if self._coarse is not None else None)
+        self._run(plan, zq, wq, none, none, qkeys, qcoarse)
+
+    def dispatch_stats(self) -> dict:
+        """Warm vs first-contact dispatch counts: a warmed engine serving
+        only ladder shapes shows zero fallbacks."""
+        return dict(self._dispatch_stats)
+
+    def last_compile_ms(self) -> float | None:
+        """First-contact wall of this thread's most recent ``execute``, or
+        None when the shape was already warm."""
+        return getattr(self._tls, "compile_ms", None)
+
+    # -- entry point --------------------------------------------------------
 
     def execute(self, plan: QueryPlan, zq, wq, tq, qid, qkeys=None, qcoarse=None):
         """Run ``plan`` for a query batch.
@@ -134,9 +452,13 @@ class Executor:
         digest keys, required by tiered plans. Returns numpy
         ``(scores (Q, k), ids (Q, k), n_scored (Q,))``.
         """
+        if self._closed:
+            raise RuntimeError("executor is closed (its snapshot version was "
+                               "retired); pin a live version instead")
         q = int(np.asarray(zq).shape[0])
         self._tls.tier_stats = None
-        if self.n_columns == 0 or q == 0:
+        self._tls.compile_ms = None
+        if self.n_live == 0 or q == 0:
             return (np.full((q, plan.k), -np.inf, np.float32),
                     np.full((q, plan.k), -1, np.int32),
                     np.zeros((q,), np.int32))
@@ -152,6 +474,45 @@ class Executor:
                                  "digest, but this executor has none")
             if qcoarse is None:
                 raise ValueError("plan 'tiered' needs coarse query keys")
+        # first contact with this (kind, k, budget, grid, batch shape) is a
+        # visible compile_begin/compile_end pair, its wall a thread-local
+        # the engine folds into the request trace
+        shape_key = (plan.kind, plan.k, plan.budget, plan.grid, q)
+        first = shape_key not in self._seen_shapes
+        self._seen_shapes.add(shape_key)
+        self._dispatch_stats["aot" if self._unit(plan, q) in self._warm
+                             else "fallback"] += 1
+        if first and self._events is not None:
+            self._events.publish("compile_begin", plan=plan.kind,
+                                 grid=list(plan.grid), n_queries=q, k=plan.k)
+        t0 = time.perf_counter()
+        sc, ids, n, tier = self._run(plan, zq, wq, tq, qid, qkeys, qcoarse)
+        if first:
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            self._tls.compile_ms = wall_ms
+            if self._events is not None:
+                self._events.publish("compile_end", plan=plan.kind,
+                                     grid=list(plan.grid), n_queries=q,
+                                     k=plan.k, ms=wall_ms)
+        self._tls.tier_stats = tier
+        if tier is not None and self._events is not None:
+            n_hits, n_surv = tier
+            self._events.publish(
+                "coarse_pass", n_queries=q, n_columns=self.n_live,
+                survivor_budget=plan.survivor_budget,
+                hits_mean=float(n_hits.mean()),
+                survivors_mean=float(n_surv.mean()),
+                survivors_max=int(n_surv.max()),
+                survivor_fraction=float(n_surv.mean()) / max(self.n_live, 1))
+            self._events.publish(
+                "fine_probe", n_queries=q, budget=plan.budget,
+                survivor_budget=plan.survivor_budget, scored_mean=float(n.mean()))
+        return sc, ids, n
+
+    def _run(self, plan: QueryPlan, zq, wq, tq, qid, qkeys, qcoarse):
+        """The pipeline itself: numpy ``(scores, ids, n_scored, tier)``, with
+        ``tier`` the tiered plan's (n_hits, n_survivors) or None. Every
+        result is on the host when it returns."""
         dev = self.device
         zq = torch.from_numpy(np.asarray(zq, np.float32)).to(dev)
         wq = hashes_to_torch(wq, dev)
@@ -174,8 +535,8 @@ class Executor:
         sc, ids = pad_topk(sc.cpu().numpy(), ids.to(torch.int32).cpu().numpy(),
                            plan.k)
         if tier is not None:              # (n_hits, n_survivors), read after the scan
-            self._tls.tier_stats = tuple(t.to(torch.int32).cpu().numpy() for t in tier)
-        return sc, ids, n.to(torch.int32).cpu().numpy()
+            tier = tuple(t.to(torch.int32).cpu().numpy() for t in tier)
+        return sc, ids, n.to(torch.int32).cpu().numpy(), tier
 
     def last_tier_stats(self):
         """``(n_hits (Q,), n_survivors (Q,))`` of this thread's most recent
@@ -246,7 +607,30 @@ class Executor:
         """Gather the scan's (Q, R) candidates' float32 rows from the host
         source and re-rank them exactly with the fused kernel. R is a small
         multiple of k, so the cost does not grow with the lake."""
-        safe = np.clip(ids.cpu().numpy(), 0, self.n_columns - 1)  # -1 -> row 0, masked
+        # clip to live rows, not the padded corpus: the float32 source may be
+        # an unpadded view (-1 -> row 0, already masked by the scan's -inf)
+        safe = np.clip(ids.cpu().numpy(), 0, self.n_live - 1)
         zg = torch.from_numpy(np.asarray(self._fp32_rows(safe), np.float32)).to(self.device)
         wg = self._w[torch.from_numpy(safe).to(self.device)]
         return _rescore_exact(zq, wq, zg, wg, self._gbdt, sc, ids, k)
+
+
+def _bits(a) -> np.ndarray:
+    """uint32 hashes or keys -> their int32 bit-view (4 bytes each on the
+    link; widened or kept as bit-views on the device)."""
+    return np.ascontiguousarray(np.asarray(a, np.uint32)).view(np.int32)
+
+
+def _live_ids(n_live: int, n: int, device) -> torch.Tensor:
+    """Column ids 0..n_live-1, then -1 on the pad rows."""
+    ids = torch.arange(n, device=device)
+    return torch.where(ids < n_live, ids, -1)
+
+
+def _grown(old: torch.Tensor, n_live: int, rows: torch.Tensor, n: int, fill):
+    """A new (n, ...) tensor: ``old``'s live prefix copied on the device, then
+    ``rows``, then ``fill``. ``old`` itself is never written."""
+    out = torch.full((n,) + tuple(old.shape[1:]), fill, dtype=old.dtype, device=old.device)
+    out[:n_live] = old[:n_live]
+    out[n_live:n_live + rows.shape[0]] = rows.to(old.dtype)
+    return out

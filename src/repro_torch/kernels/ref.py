@@ -111,6 +111,12 @@ def lsh_probe_gathered_ref(qkeys, ckeys):
     return (qkeys[:, None, :] == ckeys).any(-1).to(torch.int32)
 
 
+def minhash_jaccard_ref(sig_a, sig_b):
+    """Estimated *set* Jaccard from signatures (the MinHash baseline):
+    the float32 fraction of equal permutation minima along the last axis."""
+    return (sig_a == sig_b).to(torch.float32).mean(-1)
+
+
 def standardized_bounds(mu: float, sigma: float, lo: float, hi: float):
     """(lo − μ)/σ and (hi − μ)/σ, computed in double and rounded to float32:
     the points where the truncated CDF evaluates Φ at its bounds."""

@@ -122,6 +122,32 @@ class LSHIndex:
     def n_columns(self) -> int:
         return int(self.keys.shape[0])
 
+    def extend(self, new_signatures: np.ndarray) -> "LSHIndex":
+        """Index with ``new_signatures``'s rows appended — byte-identical to
+        a fresh :meth:`build` over the concatenated signature matrix. Both
+        key functions are pure per row (the remainder fold touches only each
+        row's own trailing permutations), so an append-only ingest delta
+        hashes only the new rows."""
+        new_signatures = np.asarray(new_signatures)
+        if new_signatures.shape[0] == 0:
+            return self
+        new_keys = band_keys(new_signatures, self.config.n_bands)
+        coarse = self.coarse
+        if coarse is not None:
+            coarse = np.concatenate(
+                [coarse, coarse_band_keys(new_signatures, self.config.n_coarse_bands)])
+        return LSHIndex(config=self.config, keys=np.concatenate([self.keys, new_keys]),
+                        coarse=coarse)
+
+    def retract(self, keep_mask: np.ndarray) -> "LSHIndex":
+        """Index restricted to the rows where ``keep_mask`` is True —
+        byte-identical to a fresh :meth:`build` over the kept signatures."""
+        keep = np.asarray(keep_mask, bool)
+        if keep.shape != (self.n_columns,):
+            raise ValueError(f"keep_mask shape {keep.shape} != ({self.n_columns},)")
+        return LSHIndex(config=self.config, keys=self.keys[keep],
+                        coarse=None if self.coarse is None else self.coarse[keep])
+
     def query_keys(self, signatures_q: np.ndarray) -> np.ndarray:
         return band_keys(signatures_q, self.config.n_bands)
 
@@ -144,3 +170,38 @@ class LSHIndex:
         dev = resolve_device(device)
         return ops.lsh_probe(hashes_to_torch(qkeys_coarse, dev),
                              hashes_to_torch(self.coarse, dev))
+
+    def candidate_fraction(self, qkeys: np.ndarray, *, device=None) -> float:
+        """Mean fraction of the lake a query's candidate set covers."""
+        m = self.hit_mask(qkeys, device=device).cpu().numpy()
+        return float(m.mean()) if m.size else 0.0
+
+    def coarse_fraction(self, qkeys_coarse: np.ndarray, *, device=None) -> float:
+        """Mean fraction of the lake surviving the coarse pass."""
+        m = self.coarse_hit_mask(qkeys_coarse, device=device).cpu().numpy()
+        return float(m.mean()) if m.size else 0.0
+
+
+def measure_tradeoff(signatures: np.ndarray, full_topk_ids: np.ndarray,
+                     query_rows: np.ndarray, band_choices=(16, 32, 64, 128), *,
+                     device=None):
+    """Recall-vs-pruning curve: for each band count, the fraction of the
+    brute-force top-k retained in the candidate set vs the fraction of the
+    lake probed. ``query_rows`` indexes the querying columns; entries of
+    ``full_topk_ids`` < 0 are padding."""
+    out = []
+    for nb in band_choices:
+        if nb > signatures.shape[1]:
+            continue
+        idx = LSHIndex.build(signatures, LSHConfig(n_bands=nb))
+        mask = idx.hit_mask(idx.keys[query_rows], device=device).cpu().numpy()
+        hit, tot = 0, 0
+        for qi, row in enumerate(full_topk_ids):
+            valid = row[row >= 0]
+            hit += int(mask[qi, valid].sum())
+            tot += int(valid.size)
+        out.append({"n_bands": nb,
+                    "rows_per_band": signatures.shape[1] // nb,
+                    "recall": hit / max(tot, 1),
+                    "candidate_fraction": float(mask.mean())})
+    return out

@@ -18,7 +18,9 @@ from repro_torch.core.profiles import profile_lake
 from repro_torch.exec.executor import Executor
 from repro_torch.kernels import _build
 from repro_torch.launch import discover
-from repro_torch.service.catalog import profile_and_sign
+from repro_torch.service.catalog import (CatalogSnapshot, CatalogStore,
+                                         profile_and_sign)
+from repro_torch.service.engine import DiscoveryEngine
 from repro_torch.service.lsh import LSHConfig, LSHIndex
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -45,6 +47,13 @@ _SCALE_MODULES = {"repro_torch.launch", "repro_torch.launch.costmodel",
                   "repro_torch.core.quality", "repro_torch.core.predictor",
                   "repro_torch.launch.discover", "repro_torch.launch.train_quality",
                   "repro_torch.launch.bench_scorer"}
+# modules of the serving path
+_SERVE_MODULES = {"repro_torch.service", "repro_torch.service.api",
+                  "repro_torch.service.catalog", "repro_torch.service.compactor",
+                  "repro_torch.service.engine", "repro_torch.service.events",
+                  "repro_torch.service.loadgen", "repro_torch.service.metrics",
+                  "repro_torch.service.scheduler", "repro_torch.core.sketches",
+                  "repro_torch.core.profiles", "repro_torch.kernels.ref"}
 
 
 def test_port_imports_without_jax_or_repro():
@@ -53,8 +62,9 @@ def test_port_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 22                     # every module was imported
+    assert len(names) >= 29                     # every module was imported
     assert _SCALE_MODULES <= names, _SCALE_MODULES - names
+    assert _SERVE_MODULES <= names, _SERVE_MODULES - names
 
 
 def test_kernel_sources_are_keyed_by_content():
@@ -116,7 +126,22 @@ _ENTRY_POINTS = {
     "predict_scores": lambda lake, prof, model: predict_scores(model, prof, [0]),
     "launch.discover.main": lambda lake, prof, model: discover.main(
         ["--tables", "3", "--domains", "3"]),
+    "CatalogStore": lambda lake, prof, model: CatalogStore(
+        os.path.join(os.path.dirname(__file__), "no-such-catalog-dir")),
+    "DiscoveryEngine": lambda lake, prof, model: DiscoveryEngine(
+        _empty_snapshot(), model),
+    "launch.discover.main --serve": lambda lake, prof, model: discover.main(
+        ["--tables", "3", "--domains", "3", "--model", "unused.npz",
+         "--catalog", "unused", "--serve"]),
 }
+
+
+def _empty_snapshot() -> CatalogSnapshot:
+    return CatalogSnapshot(profiles=profile_lake(
+        generate_lake(LakeSpec(n_domains=1, n_tables=1, row_budget=16, seed=0)).batch,
+        device="cpu"), signatures=np.zeros((1, 16), np.uint32),
+        table_ids=np.zeros((1,), np.int32), names=["c"], table_names={0: "t"},
+        version=0)
 
 
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))

@@ -8,8 +8,11 @@ Phases:
 0. the card: name, count, and ``nvidia-smi``'s name and power limit;
 1. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once);
-2. each kernel against its plain PyTorch version at ragged small shapes;
-3. four paths at real size, through the port's own entry points, each
+2. each kernel against its plain PyTorch version at ragged small shapes,
+   and the three kernels that stage an ensemble in a constant bank
+   (``fused_score``, ``fused_score_q``, ``gbdt_infer``) under two host
+   threads calling them with two different ensembles;
+3. five paths at real size, through the port's own entry points, each
    with the launch counts set to 0 just before it and read just after it:
    a. the discovery query: train the join-quality model (T=50, D=5) on the
       default lake, ingest a 100k-column x 256-row scaled lake (profiles +
@@ -39,6 +42,17 @@ Phases:
       the plain pipeline (up to exact ties, equal ``n_candidates``); the
       followed answers against a fresh executor over the same rows
       (exactly); the retired version's device memory must be released.
+   e. the replica fleet: an ``EngineFleet`` of two catalog followers, both
+      on the card, opened over the serving path's catalog at its head and
+      warmed; 272 requests through ``RequestScheduler(fleet)`` from 4
+      clients; a second handle appends a 1,024-column table and the fleet
+      rolls the refresh over its replicas; then a second burst with
+      replica 1 killed mid-batch by a ``FaultInjector``. Every formed
+      batch of both bursts is held against its replica's pinned
+      ``Executor.execute`` (exactly) and the plain pipeline; the rolled
+      replicas against a fresh executor (exactly); the killed replica's
+      batch must be re-dispatched, every future resolved, its engine
+      closed and its resident corpus freed.
    Each plan's ids are held against a plain pipeline over the same
    candidates (plain probes and plain scorers); the quantized top-10 must
    overlap the float32 one by at least 0.99. The model path's distances
@@ -59,6 +73,7 @@ failure raises and exits non-zero. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -103,7 +118,8 @@ from repro_torch.launch.bench_scorer import launch_floor          # noqa: E402
 from repro_torch.service import catalog                           # noqa: E402
 from repro_torch.service import (CatalogReader, CatalogStore,     # noqa: E402
                                  DiscoveryEngine, DiscoveryRequest, EngineConfig,
-                                 RequestScheduler)
+                                 EngineFleet, FaultInjector, RequestScheduler)
+from repro_torch.service.fleet import EVICTED, SERVING, WARMING   # noqa: E402
 from repro_torch.service.lsh import LSHConfig, LSHIndex           # noqa: E402
 
 # the main path's geometry
@@ -155,6 +171,9 @@ CORR_GATE = 0.6         # prediction vs exact metric (tests/test_discovery.py:86
 # threads, and the appended table the follower picks up
 SERVE_REPEATS, N_UPLOADS, N_CLIENTS = 4, 16, 4
 FOLLOW_LAKE = ScaledLakeSpec(n_columns=1024, seed=6)
+# the fleet path: replicas on the one card, and the table its rolling
+# refresh picks up
+N_REPLICAS, ROLL_LAKE = 2, ScaledLakeSpec(n_columns=1024, seed=7)
 PLAIN_ROWS = 64         # query rows per plain-pipeline chunk
 # the caching allocator hands out a cached block whole when splitting it
 # would leave under 1 MiB, so a freed tensor may release up to that much
@@ -520,6 +539,51 @@ def check_ragged(dev) -> None:
             _equal_nan(f"quality_cdf at {shape}, offsets {(off_j, off_k)}",
                        ops.quality_cdf(*args), ref.quality_cdf_ref(*args))
     torch.cuda.synchronize()
+
+
+def check_concurrent(dev, n_threads: int = 8, n_calls: int = 1000) -> dict:
+    """``n_threads`` host threads on one stream, each calling a kernel that
+    stages its ensemble in the library's constant bank with one of two
+    ensembles (50 x 5, and 1000 x 5, scored in chunks of trees), ``n_calls``
+    times each, at small shapes where the host side of a call is most of
+    its time: every call must launch and equal its plain version."""
+    from concurrent.futures import ThreadPoolExecutor
+    r = np.random.default_rng(3)
+    out = {}
+    for kernel in ("fused_score", "fused_score_q", "gbdt_infer"):
+        cases = []
+        for t in (50, 1000):
+            g = _random_gbdt(r, t, 5, dev)
+            if kernel == "gbdt_infer":
+                x = torch.from_numpy(r.normal(size=(256, FT.F_DIST)).astype(np.float32)).to(dev)
+                cases.append((lambda x=x, g=g: ops.gbdt_infer(x, g), ref.gbdt_infer_ref(x, *g)))
+                continue
+            zq, wq = _random_profiles(r, (1,), dev)
+            zc, wc = _random_profiles(r, (128,), dev)
+            if kernel == "fused_score":
+                cases.append((lambda a=(zq, wq, zc, wc), g=g: ops.fused_score(*a, g),
+                              ref.fused_score_ref(zq, wq, zc, wc, *g)))
+                continue
+            side, scale = quantize_profiles(zc.cpu().numpy(), "int8")
+            a = (zq, wq, torch.from_numpy(side).to(dev), torch.from_numpy(scale).to(dev), wc)
+            cases.append((lambda a=a, g=g: ops.fused_score_q(*a, g), ref.fused_score_q_ref(*a, *g)))
+        start = threading.Barrier(n_threads)
+
+        def hammer(call):
+            start.wait(timeout=60)
+            return [call() for _ in range(n_calls)]
+
+        with ThreadPoolExecutor(n_threads) as pool:
+            futures = [pool.submit(hammer, cases[i % 2][0]) for i in range(n_threads)]
+            results = [f.result(timeout=300) for f in futures]
+        torch.cuda.synchronize()
+        bad = sum(not torch.equal(got, cases[i % 2][1])
+                  for i, outs in enumerate(results) for got in outs)
+        if bad:
+            raise AssertionError(f"{kernel}: {bad} of {n_calls * n_threads} concurrent calls "
+                                 f"with two ensembles differ from their plain versions")
+        out[kernel] = n_calls * n_threads
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -938,36 +1002,52 @@ def _uploads(n: int):
     return [[f"up{i}_{v}" for v in r.integers(0, 40 + 10 * i, 200)] for i in range(n)]
 
 
-def _serve(engine, requests, n_clients: int):
-    """Submit ``requests`` through a scheduler from ``n_clients`` threads;
-    return the responses in request order, every formed batch as
-    (requests, responses), the wall and the scheduler's counters."""
-    formed, real = [], engine.query_batch
-
-    def spy(reqs, **kw):
-        out = real(reqs, **kw)
-        formed.append((list(reqs), out))
-        return out
-
-    engine.query_batch = spy
-    futures = [None] * len(requests)
+@contextlib.contextmanager
+def _spied(engines):
+    """Record every batch each engine's ``query_batch`` serves: yields one
+    list of (requests, responses) per engine."""
+    formed = [[] for _ in engines]
+    reals = [eng.query_batch for eng in engines]
+    for eng, real, out in zip(engines, reals, formed):
+        def spy(reqs, _real=real, _out=out, **kw):
+            res = _real(reqs, **kw)
+            _out.append((list(reqs), res))
+            return res
+        eng.query_batch = spy
     try:
-        with RequestScheduler(engine) as sch:
-            def client(c):
-                for i in range(c, len(requests), n_clients):
-                    futures[i] = sch.submit(requests[i], block=True)
-
-            t0 = time.perf_counter()
-            threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
-            responses = [f.result(timeout=300) for f in futures]
-            wall = time.perf_counter() - t0
-            stats = sch.stats()
+        yield formed
     finally:
-        engine.query_batch = real
+        for eng, real in zip(engines, reals):
+            eng.query_batch = real
+
+
+def _submit(front, requests, n_clients: int):
+    """Submit ``requests`` through a scheduler over ``front`` (an engine or
+    a fleet) from ``n_clients`` threads; return the responses in request
+    order, the wall and the scheduler's counters."""
+    futures = [None] * len(requests)
+    with RequestScheduler(front) as sch:
+        def client(c):
+            for i in range(c, len(requests), n_clients):
+                futures[i] = sch.submit(requests[i], block=True)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        responses = [f.result(timeout=300) for f in futures]
+        wall = time.perf_counter() - t0
+        stats = sch.stats()
+    return responses, wall, stats
+
+
+def _serve(engine, requests, n_clients: int):
+    """:func:`_submit` over one engine, with every formed batch as
+    (requests, responses)."""
+    with _spied([engine]) as (formed,):
+        responses, wall, stats = _submit(engine, requests, n_clients)
     return responses, formed, wall, stats
 
 
@@ -1125,6 +1205,57 @@ def plain_serve(ex, plan, zq, wq, tq, qid, qkeys, qcoarse, dev):
     return sc, ids, n.cpu().numpy()
 
 
+def check_formed(name, eng, st, formed, dev) -> int:
+    """Hold each formed batch of engine ``eng`` against ``Executor.execute``
+    on its pinned version ``st`` (exactly) and the plain pipeline (up to
+    exact ties, equal ``n_candidates``). Returns the rows checked."""
+    n_rows = 0
+    for reqs, responses in formed:
+        plan, args, q = _batch_inputs(eng, st, reqs)
+        sc, ids, n = st.executor.execute(plan, *args)
+        s_got, i_got = _as_arrays(responses)
+        if not (np.array_equal(i_got, ids[:q]) and np.array_equal(s_got, sc[:q])):
+            raise AssertionError(f"{name}: a response differs from Executor.execute "
+                                 f"on its pinned version")
+        if [r.n_candidates for r in responses] != n[:q].tolist():
+            raise AssertionError(f"{name}: n_candidates differs from the executor's")
+        for lo in range(0, len(args[0]), PLAIN_ROWS):
+            part = [a[lo:lo + PLAIN_ROWS] for a in args]
+            s_ref, i_ref, n_ref = plain_serve(st.executor, plan, *part, dev)
+            _same_ranking(f"{name} plain", torch.from_numpy(s_ref), torch.from_numpy(i_ref),
+                          sc[lo:lo + PLAIN_ROWS], ids[lo:lo + PLAIN_ROWS])
+            if not np.array_equal(n_ref, n[lo:lo + PLAIN_ROWS]):
+                raise AssertionError(f"{name}: n_scored differs from the plain pipeline's")
+        n_rows += q
+    return n_rows
+
+
+def check_fresh(name, eng, st, requests, responses, dev) -> None:
+    """Hold the answers of version ``st`` (its executor, and ``responses``
+    to ``requests``) against a fresh executor over the same rows, exactly."""
+    fresh = Executor(st.z, st.w, eng.model.gbdt.astuple(),
+                     table_ids=st.snapshot.table_ids, band_keys=st.lsh.keys,
+                     coarse_keys=st.lsh.coarse, n_padded=st.executor.n_columns, device=dev)
+    plan, args, q = _batch_inputs(eng, st, requests)
+    want = fresh.execute(plan, *args)
+    got = st.executor.execute(plan, *args)
+    s_resp, i_resp = _as_arrays(responses)
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)) or not (
+            np.array_equal(i_resp, want[1][:q]) and np.array_equal(s_resp, want[0][:q])):
+        raise AssertionError(f"{name}: the extended executor differs from a fresh one")
+    if [r.n_candidates for r in responses] != want[2][:q].tolist():
+        raise AssertionError(f"{name}: the followed n_candidates differ from a fresh executor's")
+    fresh.close()
+
+
+def corpus_bytes(executor) -> tuple[int, int]:
+    """The bytes an executor's resident rows hold (each tensor rounded to
+    the allocator's 512) and the allocator slack their release may add."""
+    rows = [t for k, t in executor._rows_bundle.arrays.items()
+            if k != "zscale" and t is not None]
+    return sum(-(-t.nbytes // 512) * 512 for t in rows), ALLOC_SLACK * len(rows)
+
+
 def check_serve_path(serve: dict, dev, smi: str) -> dict:
     """Hold every formed batch against the pinned executor (exactly) and
     the plain pipeline, the followed answers against a fresh executor, and
@@ -1134,24 +1265,7 @@ def check_serve_path(serve: dict, dev, smi: str) -> dict:
         eng, st = serve["engines"][name], rec["state"]
         if any(r.cached for r in rec["responses"]):
             raise AssertionError(f"{name}: a response came from the result cache")
-        n_rows = 0
-        for reqs, responses in rec["formed"]:
-            plan, args, q = _batch_inputs(eng, st, reqs)
-            sc, ids, n = st.executor.execute(plan, *args)
-            s_got, i_got = _as_arrays(responses)
-            if not (np.array_equal(i_got, ids[:q]) and np.array_equal(s_got, sc[:q])):
-                raise AssertionError(f"{name}: a response differs from Executor.execute "
-                                     f"on its pinned version")
-            if [r.n_candidates for r in responses] != n[:q].tolist():
-                raise AssertionError(f"{name}: n_candidates differs from the executor's")
-            for lo in range(0, len(args[0]), PLAIN_ROWS):
-                part = [a[lo:lo + PLAIN_ROWS] for a in args]
-                s_ref, i_ref, n_ref = plain_serve(st.executor, plan, *part, dev)
-                _same_ranking(f"{name} plain", torch.from_numpy(s_ref), torch.from_numpy(i_ref),
-                              sc[lo:lo + PLAIN_ROWS], ids[lo:lo + PLAIN_ROWS])
-                if not np.array_equal(n_ref, n[lo:lo + PLAIN_ROWS]):
-                    raise AssertionError(f"{name}: n_scored differs from the plain pipeline's")
-            n_rows += q
+        n_rows = check_formed(name, eng, st, rec["formed"], dev)
         if n_rows != len(rec["responses"]):
             raise AssertionError(f"{name}: {n_rows} rows checked of {len(rec['responses'])}")
         out[name] = dict(batches=len(rec["formed"]), plan=eng.stats()["last_plan"]["kind"])
@@ -1162,27 +1276,10 @@ def check_serve_path(serve: dict, dev, smi: str) -> dict:
     new, old = f["new"], f["old"]
     if not f["refresh"]["incremental"] or new.version <= old.version:
         raise AssertionError(f"serve: the follower did not refresh incrementally: {f['refresh']}")
-    fresh = Executor(new.z, new.w, eng.model.gbdt.astuple(),
-                     table_ids=new.snapshot.table_ids, band_keys=new.lsh.keys,
-                     coarse_keys=new.lsh.coarse, n_padded=new.executor.n_columns, device=dev)
-    plan, args, q = _batch_inputs(eng, new, f["requests"])
-    want = fresh.execute(plan, *args)
-    got = new.executor.execute(plan, *args)
-    s_resp, i_resp = _as_arrays(f["responses"])
-    if not all(np.array_equal(a, b) for a, b in zip(got, want)) or not (
-            np.array_equal(i_resp, want[1][:q]) and np.array_equal(s_resp, want[0][:q])):
-        raise AssertionError("serve: the extended executor differs from a fresh one")
-    if [r.n_candidates for r in f["responses"]] != want[2][:q].tolist():
-        raise AssertionError("serve: the followed n_candidates differ from a fresh executor's")
-    fresh.close()
-    del fresh
+    check_fresh("serve", eng, new, f["requests"], f["responses"], dev)
 
     # the retired version: released by its last pin, its rows freed
-    held = old.executor._rows_bundle.arrays
-    rows = [t for k, t in held.items() if k != "zscale" and t is not None]
-    expect = sum(-(-t.nbytes // 512) * 512 for t in rows)
-    slack = ALLOC_SLACK * len(rows)
-    del held, rows
+    expect, slack = corpus_bytes(old.executor)
     eng._release(old)          # the engine's head moved on: still open
     if old.executor.closed:
         raise AssertionError("serve: a version still pinned by a batch was closed")
@@ -1202,11 +1299,175 @@ def check_serve_path(serve: dict, dev, smi: str) -> dict:
     eng._release(new)
     for e in serve["engines"].values():
         e.close()
-    shutil.rmtree(serve["root"], ignore_errors=True)
     log(f"check: serve: the followed engine's answers equal a fresh executor's exactly; "
         f"retiring v{old.version} closed its executor and freed {freed} bytes "
         f"(resident corpus {expect}); card {smi}")
     return dict(out, freed=freed, expected=expect)
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: the replica fleet at real size
+# ---------------------------------------------------------------------------
+
+def _fleet_burst(fleet, requests, tag: str) -> dict:
+    """One burst through ``RequestScheduler(fleet)`` from N_CLIENTS threads,
+    every replica engine's formed batches recorded."""
+    with _spied([r.engine for r in fleet.replicas]) as formed:
+        responses, wall, stats = _submit(fleet, requests, N_CLIENTS)
+    torch.cuda.synchronize()
+    lat = np.asarray([r.latency_ms for r in responses])
+    st = fleet.stats()
+    split = {rid: (sum(len(reqs) for reqs, _ in formed[rid]), len(formed[rid]))
+             for rid in range(len(formed))}
+    out = dict(requests=requests, responses=responses, formed=formed, wall=wall,
+               qps=len(requests) / wall, p50=float(np.percentile(lat, 50)),
+               p99=float(np.percentile(lat, 99)), scheduler=stats, split=split,
+               redispatches=st["redispatches"], evictions=st["evictions"])
+    log(f"fleet: {tag}: {len(requests)} requests from {N_CLIENTS} clients in {wall:.3f} s "
+        f"= {out['qps']:.1f} queries/s; latency p50 {out['p50']:.2f} ms p99 {out['p99']:.2f} ms; "
+        f"{stats['batches']} batches, sizes {stats['batch_size_hist']}; (requests, batches) "
+        f"by replica {split}; {st['redispatches']} re-dispatched, {st['evictions']} evicted")
+    return out
+
+
+def fleet_path(run: dict, served: dict, dev) -> dict:
+    """Open a two-replica fleet over the serving path's catalog at its
+    current head, serve a burst, append a table and roll the refresh over
+    the replicas, then kill replica 1 mid-batch during a second burst. The
+    versions each burst served stay pinned until ``check_fleet_path``."""
+    lake, model, qids = run["lake"], run["model"], run["qids"]
+    root, out = served["root"], {}
+    injector = FaultInjector()
+    t0 = time.perf_counter()
+    # the default devices on the card (every replica on the one card); a
+    # host rehearsal names the CPU
+    fleet = EngineFleet.from_catalog(root, model, _engine_config(mode="lsh"),
+                                     n_replicas=N_REPLICAS, injector=injector,
+                                     devices=None if dev.type == "cuda" else [dev])
+    deadline = time.perf_counter() + 300
+    while any(r.state == WARMING for r in fleet.replicas) and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    if any(r.state != SERVING for r in fleet.replicas):
+        raise AssertionError(f"fleet: a replica did not warm: {fleet.stats()}")
+    out["walls"] = {"open": sync_wall(t0)}
+    out.update(fleet=fleet, injector=injector)
+    reps = fleet.replicas
+    log(f"fleet: {len(reps)} replicas on {[str(r.engine.device) for r in reps]} opened from "
+        f"disk and warmed in {out['walls']['open']:.2f} s; versions "
+        f"{[r.engine.version for r in reps]}; warmups "
+        f"{[round(r.engine.warmup_report['wall_ms'], 1) for r in reps]} ms; states "
+        f"{[r.state for r in reps]}")
+
+    uploads = _uploads(N_UPLOADS)
+
+    def burst(tag):
+        return ([DiscoveryRequest(name=f"{tag}q{int(q)}.{r}", column_id=int(q))
+                 for r in range(SERVE_REPEATS) for q in qids]
+                + [DiscoveryRequest(name=f"{tag}up{i}", values=v) for i, v in enumerate(uploads)])
+
+    out["pins1"] = [r.engine._pin() for r in reps]
+    out["burst1"] = _fleet_burst(fleet, burst("a"), "burst 1")
+
+    # rolling refresh: a second handle appends a table, and the fleet moves
+    # its replicas onto the new version one at a time
+    roll = generate_scaled_lake(ROLL_LAKE)
+    batch = dataclasses.replace(roll.batch, names=[f"r{i}" for i in range(roll.n_columns)],
+                                table_ids=np.zeros((roll.n_columns,), np.int32))
+    before = [r.engine.stats()["refresh"]["incremental"] for r in reps]
+    CatalogStore(root, device=dev).add_batch(batch, ["roll"])
+    t0 = time.perf_counter()
+    moved = fleet.roll_refresh()
+    out["walls"]["roll"] = sync_wall(t0)
+    out["roll"] = dict(moved=moved, incremental=[
+        r.engine.stats()["refresh"]["incremental"] - b for r, b in zip(reps, before)])
+    n_live = reps[0].engine.n_columns
+    reqs = ([DiscoveryRequest(name=f"r{int(q)}", column_id=int(q)) for q in qids]
+            + [DiscoveryRequest(name=f"ru{i}", values=v) for i, v in enumerate(uploads)]
+            + [DiscoveryRequest(name=f"new{i}", column_id=n_live - roll.n_columns + i)
+               for i in range(0, roll.n_columns, 128)])
+    out["pins2"] = [r.engine._pin() for r in reps]
+    out["roll"].update(requests=reqs, responses=[r.engine.query_batch(reqs) for r in reps])
+    log(f"fleet: rolled {moved} replicas onto v{reps[0].engine.version} "
+        f"({out['roll']['incremental']} incremental refreshes) in "
+        f"{out['walls']['roll'] * 1e3:.1f} ms after a {roll.n_columns}-column append; "
+        f"{n_live} columns live")
+
+    # kill replica 1 at its next batch: its batch is re-dispatched to replica 0
+    injector.arm("mid_batch", replica=1)
+    out["burst2"] = _fleet_burst(fleet, burst("b"), "burst 2 (replica 1 killed mid-batch)")
+    return out
+
+
+def check_fleet_path(fleet_run: dict, dev, smi: str) -> dict:
+    """Hold both bursts' formed batches against each replica's pinned
+    version and the plain pipeline, the rolled replicas against a fresh
+    executor, and the killed replica's eviction: its batch re-dispatched,
+    its engine closed, every executor it held closed and its corpus freed."""
+    fleet, injector = fleet_run["fleet"], fleet_run["injector"]
+    reps = fleet.replicas
+    for tag, pins in (("burst1", fleet_run["pins1"]), ("burst2", fleet_run["pins2"])):
+        b = fleet_run[tag]
+        rows = sum(check_formed(f"fleet {tag} replica {rid}", r.engine, pins[rid],
+                                b["formed"][rid], dev) for rid, r in enumerate(reps))
+        if rows != len(b["requests"]) or [r.name for r in b["responses"]] != \
+                [r.name for r in b["requests"]]:
+            raise AssertionError(f"fleet {tag}: {rows} rows served of {len(b['requests'])}")
+        if any(r.cached for r in b["responses"]):
+            raise AssertionError(f"fleet {tag}: a response came from the result cache")
+    b1, b2 = fleet_run["burst1"], fleet_run["burst2"]
+    if b1["evictions"] or b1["redispatches"]:
+        raise AssertionError(f"fleet: a replica failed during burst 1: {fleet.stats()}")
+    for pin, r in zip(fleet_run["pins1"], reps):
+        r.engine._release(pin)
+    log("check: fleet: every formed batch of both bursts equals Executor.execute on its "
+        "replica's pinned version and the plain pipeline (up to exact ties, equal "
+        "n_candidates); every request answered once")
+
+    roll = fleet_run["roll"]
+    if roll["moved"] != len(reps) or roll["incremental"] != [1] * len(reps):
+        raise AssertionError(f"fleet: the rolling refresh did not move every replica "
+                             f"incrementally: {roll}")
+    for rid, r in enumerate(reps):
+        check_fresh(f"fleet replica {rid}", r.engine, fleet_run["pins2"][rid],
+                    roll["requests"], roll["responses"][rid], dev)
+    log("check: fleet: each rolled replica's answers equal a fresh executor's exactly")
+
+    # the kill: the batch re-dispatched, replica 1 evicted and its version freed
+    killed, st = reps[1], fleet_run["pins2"][1]
+    if injector.fired != [("mid_batch", 1, "kill")] or b2["redispatches"] < 1 \
+            or b2["evictions"] != 1:
+        raise AssertionError(f"fleet: the kill of replica 1 was not re-dispatched: fired "
+                             f"{injector.fired}, {fleet.stats()}")
+    if killed.state != EVICTED or not killed.engine.closed or reps[0].state != SERVING:
+        raise AssertionError(f"fleet: states after the kill {[r.state for r in reps]}")
+    if b2["split"][1] != (0, 0) or b2["split"][0][0] != len(b2["requests"]):
+        raise AssertionError(f"fleet: replica 0 did not serve the whole second burst: "
+                             f"{b2['split']}")
+    expect, slack = corpus_bytes(st.executor)
+    if st.refs != 1 or st.executor.closed:
+        raise AssertionError(f"fleet: the killed replica's head holds {st.refs} pins")
+    allocated = (torch.cuda.memory_allocated if dev.type == "cuda"
+                 else lambda _: 0)    # a host rehearsal has no device allocator
+    torch.cuda.synchronize()
+    before = allocated(dev)
+    killed.engine._release(st)
+    torch.cuda.synchronize()
+    freed = before - allocated(dev)
+    held = [fleet_run["pins1"][1], st]
+    if st.refs != 0 or killed.engine._live or not all(p.executor.closed for p in held) or (
+            dev.type == "cuda" and not expect <= freed <= expect + slack):
+        raise AssertionError(f"fleet: evicting replica 1 left refs {st.refs}, live "
+                             f"{len(killed.engine._live)}, freed {freed} bytes of a "
+                             f"{expect}-byte corpus (+ up to {slack})")
+    reps[0].engine._release(fleet_run["pins2"][0])
+    fleet.close()
+    if any(r.state != EVICTED or not r.engine.closed or r.engine._live for r in reps):
+        raise AssertionError("fleet: close left a replica serving or a version pinned")
+    log(f"check: fleet: replica 1 killed mid-batch, {b2['redispatches']} batch(es) "
+        f"re-dispatched to replica 0, every future resolved; its engine closed, its head's "
+        f"pins returned to 0 and retiring it freed {freed} bytes (resident corpus {expect}); "
+        f"card {smi}")
+    return dict(freed=freed, expected=expect)
 
 
 # ---------------------------------------------------------------------------
@@ -1520,11 +1781,12 @@ def main() -> int:
     log(f"phase 1: built {len(paths)} kernels in {time.perf_counter() - t0:.2f} s: "
         f"{sorted(p.name for p in paths.values())}")
 
-    # phase 2: ragged shapes
+    # phase 2: ragged shapes, and two threads with two ensembles
     t0 = time.perf_counter()
     check_ragged(dev)
-    log(f"phase 2: kernels equal their plain versions at ragged shapes "
-        f"({time.perf_counter() - t0:.2f} s)")
+    concurrent = check_concurrent(dev)
+    log(f"phase 2: kernels equal their plain versions at ragged shapes, and under "
+        f"concurrent calls with two ensembles {concurrent} ({time.perf_counter() - t0:.2f} s)")
 
     # phase 3: each path counted on its own
     run, discovery = counted("discovery", ("fused_score", "minhash", "lsh_probe"),
@@ -1536,6 +1798,8 @@ def main() -> int:
     served, serve_counts = counted(
         "serve", ("fused_score", "fused_score_q", "minhash", "lsh_probe",
                   "lsh_probe_gathered"), lambda: serve_path(run, dev))
+    fleet_run, fleet_counts = counted(
+        "fleet", ("fused_score", "lsh_probe", "minhash"), lambda: fleet_path(run, served, dev))
     counts = {"discovery": discovery, "scale": scale, "model": model}
     launches = {k: counts[PATH_OF[k]][k] for k in _build.KERNELS}
     t0 = time.perf_counter()
@@ -1543,6 +1807,8 @@ def main() -> int:
     check_scale_path(run, dev)
     check_model_path(run, dev)
     check_serve_path(served, dev, smi)
+    check_fleet_path(fleet_run, dev, smi)
+    shutil.rmtree(served["root"], ignore_errors=True)
     log(f"phase 3 check: {time.perf_counter() - t0:.2f} s")
     log(f"serve summary ({smi}): ingest {served['walls']['ingest']:.2f} s; "
         + "; ".join(f"{name} warmup {served['engines'][name].warmup_report['wall_ms']:.1f} ms, "
@@ -1552,6 +1818,14 @@ def main() -> int:
         f"{served['follow']['new'].executor.bytes_uploaded} bytes uploaded "
         f"(full placement {served['follow']['old'].executor.bytes_uploaded}); "
         f"launches {serve_counts}")
+    b1, b2 = fleet_run["burst1"], fleet_run["burst2"]
+    log(f"fleet summary ({smi}): {N_REPLICAS} replicas, open + warm "
+        f"{fleet_run['walls']['open']:.2f} s; "
+        + "; ".join(f"{tag} {b['qps']:.1f} queries/s, p50 {b['p50']:.2f} ms, p99 "
+                    f"{b['p99']:.2f} ms, (requests, batches) by replica {b['split']}"
+                    for tag, b in (("burst 1", b1), ("burst 2 (kill)", b2)))
+        + f"; re-dispatches {b2['redispatches']}; roll refresh "
+        f"{fleet_run['walls']['roll'] * 1e3:.1f} ms; launches {fleet_counts}")
 
     # phase 4: kernels at the main path's shapes
     t0 = time.perf_counter()

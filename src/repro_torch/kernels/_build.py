@@ -85,6 +85,15 @@ geometry_counts = {name: {"shared": 0, "gathered": 0}
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 _sm_counts: dict[int, int] = {}
+# The libraries whose launch stages the ensemble in a module-global constant
+# bank: per chunk of trees, pack_conditions into g_conds, a copy into
+# c_conds, the kernel's shared-memory size, then the kernel. ctypes releases
+# the GIL during the call, so two host threads could interleave those steps:
+# one call's kernel scored with the other's conditions, or launched with the
+# other's shared-memory size and failed. Each wrapper holds its library's lock
+# across the call; on one stream that also orders the device work.
+staging_locks = {name: threading.Lock()
+                 for name in ("fused_score", "fused_score_q", "gbdt_infer")}
 
 
 def reset_launch_counts() -> None:
@@ -95,9 +104,10 @@ def reset_launch_counts() -> None:
 
 
 def count_launch(name: str, geometry: str | None = None) -> None:
-    launch_counts[name] += 1
-    if geometry is not None:
-        geometry_counts[name][geometry] += 1
+    with _lock:
+        launch_counts[name] += 1
+        if geometry is not None:
+            geometry_counts[name][geometry] += 1
 
 
 def _nvcc() -> str:

@@ -34,9 +34,11 @@ def gbdt_infer_cuda(x, feats, thrs, leaves, base: float):
     if n == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.freyja_gbdt_infer(x.data_ptr(), feats.data_ptr(), thrs.data_ptr(),
-                                leaves.data_ptr(), float(base), out.data_ptr(), n, f,
-                                t, d, _build.sm_count(x.device), stream)
+    n_sms = _build.sm_count(x.device)
+    with _build.staging_locks[op]:
+        err = lib.freyja_gbdt_infer(x.data_ptr(), feats.data_ptr(), thrs.data_ptr(),
+                                    leaves.data_ptr(), float(base), out.data_ptr(), n, f,
+                                    t, d, n_sms, stream)
     _build.check(op, err)
     _build.count_launch(op)
     return out

@@ -127,13 +127,14 @@ def _launch(op: str, zq, wq_bits, zc, scale, wc_bits, feats, thrs, leaves, base:
     n_sms = _build.sm_count(zq.device)
     trees = (feats.data_ptr(), thrs.data_ptr(), leaves.data_ptr(), float(base),
              out.data_ptr(), q, n, n if gathered else 0, t, d)
-    if scale is None:
-        err = lib.freyja_fused_score(zq.data_ptr(), wq_bits.data_ptr(), zc.data_ptr(),
-                                     wc_bits.data_ptr(), *trees, n_sms, stream)
-    else:
-        err = lib.freyja_fused_score_q(zq.data_ptr(), wq_bits.data_ptr(), zc.data_ptr(),
-                                       scale.data_ptr(), wc_bits.data_ptr(), *trees,
-                                       _Q_DTYPES[zc.dtype], n_sms, stream)
+    with _build.staging_locks[op]:
+        if scale is None:
+            err = lib.freyja_fused_score(zq.data_ptr(), wq_bits.data_ptr(), zc.data_ptr(),
+                                         wc_bits.data_ptr(), *trees, n_sms, stream)
+        else:
+            err = lib.freyja_fused_score_q(zq.data_ptr(), wq_bits.data_ptr(), zc.data_ptr(),
+                                           scale.data_ptr(), wc_bits.data_ptr(), *trees,
+                                           _Q_DTYPES[zc.dtype], n_sms, stream)
     _build.check(op, err)
     _build.count_launch(op, "gathered" if gathered else "shared")
     return out

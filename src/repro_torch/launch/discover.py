@@ -22,9 +22,11 @@ against the exact scan:
 publishes a table mid-run to show the pickup); ``--calibrate
 BENCH_service.json`` fits the planner's cost model from measured timings;
 ``--open-loop`` offers Poisson arrivals through the scheduler.
-``--replicas > 1`` (the replica fleet, ``ROADMAP.md`` queue 6) and
-``--grid``/``--mode sharded`` (multi-device plans, queue 7) are not ported
-and raise.
+``--replicas N`` serves through an :class:`EngineFleet` of N catalog
+followers behind the load-aware router, each on its own device from
+``make_replica_devices`` (on one card, or with ``--device cpu``, they share
+it). ``--grid``/``--mode sharded`` (multi-device plans, ``ROADMAP.md``
+queue 7) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.core.discovery import DiscoveryIndex, rank
 from repro_torch.core.gbdt import GBDTConfig
@@ -47,10 +50,6 @@ def serve_mode(args, lake, model, dev):
                                      DiscoveryRequest, EngineConfig, LSHConfig,
                                      add_lake, measure_recall, serve_discovery)
 
-    if args.replicas > 1:
-        raise NotImplementedError(
-            "--replicas > 1: the replica fleet is not ported yet; it waits "
-            "for ROADMAP.md queue 6")
     if args.grid:
         raise NotImplementedError(
             "--grid: sharded plans are not ported yet; they wait for the "
@@ -81,6 +80,10 @@ def serve_mode(args, lake, model, dev):
               f"r2={constants['r2']:.3f} over {constants['n_obs']} obs, "
               f"score={constants['score_s_per_flop']:.3e} s/flop, "
               f"fixed={1e3*constants['fixed_s_per_query']:.3f} ms/query")
+
+    if args.replicas > 1:
+        fleet_mode(args, lake, model, cost_fn, dev)
+        return
 
     # restart path: a fresh process would do exactly this
     engine = DiscoveryEngine.from_catalog(
@@ -151,6 +154,58 @@ def serve_mode(args, lake, model, dev):
     engine.close()
 
 
+def fleet_mode(args, lake, model, cost_fn, dev) -> None:
+    """``--replicas N``: serve through an :class:`EngineFleet` of catalog
+    followers behind the load-aware router. ``--device`` unset (``cuda``)
+    spreads the replicas over every visible card; any other device holds
+    them all."""
+    from repro_torch.service import (DiscoveryRequest, EngineConfig, EngineFleet,
+                                     LSHConfig, serve_discovery)
+
+    devices = None if dev == torch.device("cuda") else [dev]
+    fleet = EngineFleet.from_catalog(
+        args.catalog, model,
+        EngineConfig(k=args.k, mode=args.mode,
+                     lsh=LSHConfig(n_bands=args.lsh_bands),
+                     cost_fn=cost_fn,
+                     metrics=args.metrics_port is not None,
+                     warmup=(False if args.warmup == "off" else args.warmup),
+                     executable_cache_dir=args.executable_cache),
+        n_replicas=args.replicas, devices=devices)
+    try:
+        fleet.warm_event.wait(timeout=300)
+        st = fleet.stats()
+        slices = {rid: v["state"] for rid, v in st["replicas"].items()}
+        n_dev = torch.cuda.device_count() if devices is None else len(devices)
+        print(f"fleet: {args.replicas} replicas over {n_dev} devices, "
+              f"states {slices}")
+        metrics_server = None
+        if args.metrics_port is not None:
+            from repro_torch.service import MetricsServer
+            metrics_server = MetricsServer(fleet.metrics, port=args.metrics_port)
+            print(f"metrics: serving Prometheus exposition at {metrics_server.url}")
+        qids = select_queries(lake, args.queries)
+        reqs = [DiscoveryRequest(name=f"q{int(q)}", column_id=int(q)) for q in qids]
+        t0 = time.perf_counter()
+        responses = list(serve_discovery(fleet, reqs, max_batch=args.batch))
+        dt = time.perf_counter() - t0
+        st = fleet.stats()
+        print(f"served {len(responses)} queries in {dt:.3f}s "
+              f"({len(responses)/max(dt,1e-9):.1f} QPS, mode={args.mode}, "
+              f"{st['dispatched']} batches routed, "
+              f"{st['redispatches']} re-dispatched)")
+        for rid, v in st["replicas"].items():
+            print(f"  replica {rid}: {v['state']} "
+                  f"served {v['requests_served']} requests in "
+                  f"{v['batches_served']} batches "
+                  f"(catalog v{v['engine_version']})")
+        for r in responses[:3]:
+            names = [m.column for m in r.matches[:5]]
+            print(f"  {r.name} ({r.n_candidates} scored) -> {names}")
+    finally:
+        fleet.close()
+
+
 def open_loop_mode(args, engine, qids, closed_qps: float) -> None:
     """Poisson-arrival serving through the continuous-batching scheduler."""
     from repro_torch.launch.costmodel import derive_batch_buckets
@@ -209,8 +264,11 @@ def main(argv=None):
     ap.add_argument("--lsh-bands", type=int, default=64)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--replicas", type=int, default=1, metavar="N",
-                    help="serve through N engine replicas (not ported; N > 1 "
-                         "raises)")
+                    help="serve through an EngineFleet of N catalog-follower "
+                         "replicas behind the load-aware router (one device "
+                         "each from make_replica_devices; warm->serve->drain->"
+                         "evict lifecycle, health-check eviction, batch "
+                         "re-dispatch)")
     ap.add_argument("--follow", action="store_true",
                     help="follower mode: tail the catalog manifest chain "
                          "and refresh onto new versions between batches")

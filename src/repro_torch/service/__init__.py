@@ -1,5 +1,5 @@
 """Online join-discovery service on the port, the counterpart of
-``repro.service`` without the replica fleet (``ROADMAP.md`` queue 6).
+``repro.service``.
 
 Layers (bottom-up):
 
@@ -22,7 +22,13 @@ Layers (bottom-up):
 * ``events``    — the bounded multi-consumer :class:`EventBus`;
 * ``metrics``   — :class:`MetricsRegistry`, :class:`ServiceMetrics` and
   :class:`MetricsServer`;
-* ``loadgen``   — ``run_open_loop``, Poisson arrivals through the scheduler.
+* ``loadgen``   — ``run_open_loop``, Poisson arrivals through the scheduler;
+* ``fleet``     — :class:`EngineFleet`: N engine replicas (catalog
+  followers, one device each) behind the load-aware :class:`FleetRouter`,
+  with a warm→serve→drain→evict lifecycle, health-check eviction, batch
+  re-dispatch and a rolling refresh; ``RequestScheduler(fleet)`` is a
+  drop-in upgrade from a single engine.  :class:`FaultInjector` is the
+  testing hook that kills or hangs replicas at named points.
 """
 from repro_torch.service.api import (ColumnMatch, DiscoveryRequest,
                                      DiscoveryResponse, serve_discovery)
@@ -33,6 +39,9 @@ from repro_torch.service.catalog import (CatalogReader, CatalogSnapshot,
 from repro_torch.service.compactor import BackgroundCompactor
 from repro_torch.service.engine import DiscoveryEngine, EngineConfig, measure_recall
 from repro_torch.service.events import Event, EventBus, EventCursor, mint_trace_id
+from repro_torch.service.fleet import (EngineFleet, EngineReplica, FaultInjector,
+                                       FleetConfig, FleetRouter, ReplicaKilled,
+                                       ReplicaSnapshot)
 from repro_torch.service.lsh import (LSHConfig, LSHIndex, band_keys,
                                      coarse_band_keys)
 from repro_torch.service.metrics import (MetricsRegistry, MetricsServer,
@@ -47,6 +56,8 @@ __all__ = [
     "BackgroundCompactor",
     "DiscoveryEngine", "EngineConfig", "measure_recall",
     "Event", "EventBus", "EventCursor", "mint_trace_id",
+    "EngineFleet", "EngineReplica", "FaultInjector", "FleetConfig",
+    "FleetRouter", "ReplicaKilled", "ReplicaSnapshot",
     "LSHConfig", "LSHIndex", "band_keys", "coarse_band_keys",
     "MetricsRegistry", "MetricsServer", "ServiceMetrics", "parse_exposition",
     "DeadlineExpired", "RequestScheduler", "SchedulerConfig",

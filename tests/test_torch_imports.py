@@ -21,6 +21,7 @@ from repro_torch.launch import discover
 from repro_torch.service.catalog import (CatalogSnapshot, CatalogStore,
                                          profile_and_sign)
 from repro_torch.service.engine import DiscoveryEngine
+from repro_torch.service.fleet import EngineFleet
 from repro_torch.service.lsh import LSHConfig, LSHIndex
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -54,6 +55,10 @@ _SERVE_MODULES = {"repro_torch.service", "repro_torch.service.api",
                   "repro_torch.service.loadgen", "repro_torch.service.metrics",
                   "repro_torch.service.scheduler", "repro_torch.core.sketches",
                   "repro_torch.core.profiles", "repro_torch.kernels.ref"}
+# modules of the replica fleet and the examples' pipeline
+_FLEET_MODULES = {"repro_torch.service.fleet", "repro_torch.launch.mesh",
+                  "repro_torch.data", "repro_torch.data.pipeline"}
+EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 
 
 def test_port_imports_without_jax_or_repro():
@@ -65,6 +70,27 @@ def test_port_imports_without_jax_or_repro():
     assert len(names) >= 29                     # every module was imported
     assert _SCALE_MODULES <= names, _SCALE_MODULES - names
     assert _SERVE_MODULES <= names, _SERVE_MODULES - names
+    assert _FLEET_MODULES <= names, _FLEET_MODULES - names
+
+
+_RUN_EXAMPLE = """
+import runpy, sys
+sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["repro"] = None        # ... and of the JAX package
+sys.argv = [{path!r}, "--device", "cpu"]
+runpy.run_path({path!r}, run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_service_quickstart",
+                                  "torch_follower_quickstart", "torch_discover_augment"])
+def test_example_runs_without_jax_or_repro(tmp_path, name):
+    path = os.path.abspath(os.path.join(EXAMPLES, f"{name}.py"))
+    env = dict(os.environ, TMPDIR=str(tmp_path))
+    env.pop("PYTHONPATH", None)                 # the example finds the port itself
+    out = subprocess.run([sys.executable, "-c", _RUN_EXAMPLE.format(path=path)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 def test_kernel_sources_are_keyed_by_content():
@@ -133,6 +159,11 @@ _ENTRY_POINTS = {
     "launch.discover.main --serve": lambda lake, prof, model: discover.main(
         ["--tables", "3", "--domains", "3", "--model", "unused.npz",
          "--catalog", "unused", "--serve"]),
+    "EngineFleet.from_catalog": lambda lake, prof, model: EngineFleet.from_catalog(
+        os.path.join(os.path.dirname(__file__), "no-such-catalog-dir"), model),
+    "launch.discover.main --replicas": lambda lake, prof, model: discover.main(
+        ["--tables", "3", "--domains", "3", "--model", "unused.npz",
+         "--catalog", "unused", "--serve", "--replicas", "2"]),
 }
 
 

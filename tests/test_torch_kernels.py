@@ -4,6 +4,8 @@ plain versions on a card (``gpu`` marker; skipped on a host without one)."""
 import os
 import subprocess
 import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -702,3 +704,65 @@ def test_quality_cdf_kernel_takes_offset_views(cuda, off_j, off_k, n):
     want = ref.quality_cdf_ref(*args)
     torch.cuda.synchronize()
     _assert_equal_nan(got, want)
+
+
+def _concurrent_case(kernel, t, d, seed, device):
+    """A call of ``kernel`` on one ensemble at a small shape, where the host
+    side of a call is most of its time: (the call, its plain result)."""
+    r = np.random.default_rng(seed)
+    g = _torch_gbdt(_gbdt(t, d, seed), device)
+    if kernel == "gbdt_infer":
+        x = torch.from_numpy(r.normal(size=(256, FT.F_DIST)).astype(np.float32)).to(device)
+        return (lambda: ops.gbdt_infer(x, g)), ref.gbdt_infer_ref(x, *g)
+    zq, wq = _profiles(r, (1,))
+    if kernel == "fused_score":
+        args = _torch_inputs(zq, wq, *_profiles(r, (128,)), device)
+        return (lambda: ops.fused_score(*args, g)), ref.fused_score_ref(*args, *g)
+    zc, scale, wc = _quantized(r, (128,), "int8")
+    args = (torch.from_numpy(zq).to(device), hashes_to_torch(wq, device),
+            torch.from_numpy(zc).to(device), torch.from_numpy(scale).to(device),
+            hashes_to_torch(wc, device))
+    return (lambda: ops.fused_score_q(*args, g)), ref.fused_score_q_ref(*args, *g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["fused_score", "fused_score_q", "gbdt_infer"])
+def test_concurrent_calls_with_two_ensembles_match_plain(cuda, kernel):
+    """Eight host threads on one stream, each calling the kernel with one of
+    two ensembles (50 x 5, and 1000 x 5, which is scored in chunks of
+    trees): every call stages its conditions in the library's constant bank
+    and sets its kernel's shared-memory size, so an interleaving of two
+    calls' enqueues would score one with the other's conditions or fail
+    its launch. Every call must launch and equal its plain version."""
+    n_threads, n_calls = 8, 1000
+    cases = [_concurrent_case(kernel, 50, 5, 1, cuda), _concurrent_case(kernel, 1000, 5, 2, cuda)]
+    start = threading.Barrier(n_threads)
+
+    def hammer(call):
+        """The thread's results, and the launches that raised (a failed
+        launch configuration leaves the context usable)."""
+        start.wait(timeout=60)
+        outs, failed = [], []
+        for _ in range(n_calls):
+            try:
+                outs.append(call())
+            except RuntimeError as e:
+                failed.append(str(e))
+        return outs, failed
+
+    with ThreadPoolExecutor(n_threads) as pool:
+        futures = [pool.submit(hammer, cases[i % 2][0]) for i in range(n_threads)]
+        results = [f.result(timeout=300) for f in futures]
+    torch.cuda.synchronize()
+    bad, worst, failed = 0, 0.0, []
+    for i, (outs, errors) in enumerate(results):
+        failed += errors
+        want = cases[i % 2][1]
+        for got in outs:
+            if not torch.equal(got, want):
+                bad += 1
+                worst = max(worst, float((got - want).abs().max()))
+    assert bad == 0 and not failed, (
+        f"of {n_calls * n_threads} concurrent {kernel} calls, {bad} differ from their plain "
+        f"versions (max |err| {worst}) and {len(failed)} failed to launch "
+        f"({sorted(set(failed))})")

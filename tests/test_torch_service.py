@@ -585,7 +585,7 @@ def test_discover_serves_follows_and_reuses_a_catalog(tmp_path, capsys):
     assert JCatalogReader(root).version == 7      # the JAX reader opens it
 
 
-@pytest.mark.parametrize("flags,queue", [(["--replicas", "2"], "queue 6"),
+@pytest.mark.parametrize("flags,queue", [(["--replicas", "2", "--grid", "2x4"], "queue 7"),
                                          (["--grid", "2x4"], "queue 7"),
                                          (["--mode", "sharded"], "queue 7")])
 def test_discover_refuses_what_is_not_ported(tmp_path, flags, queue):

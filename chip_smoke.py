@@ -12,7 +12,7 @@ Phases:
    and the three kernels that stage an ensemble in a constant bank
    (``fused_score``, ``fused_score_q``, ``gbdt_infer``) under two host
    threads calling them with two different ensembles;
-3. five paths at real size, through the port's own entry points, each
+3. six paths at real size, through the port's own entry points, each
    with the launch counts set to 0 just before it and read just after it:
    a. the discovery query: train the join-quality model (T=50, D=5) on the
       default lake, ingest a 100k-column x 256-row scaled lake (profiles +
@@ -53,6 +53,21 @@ Phases:
       replicas against a fresh executor (exactly); the killed replica's
       batch must be re-dispatched, every future resolved, its engine
       closed and its resident corpus freed.
+   f. multi-device plans: the discovery path's lake, queries and float32
+      profiles over ``make_grid_mesh`` of four copies of the card (the
+      tiles of a grid run in turn on it): ``all``, ``hybrid`` and ``lsh``
+      on the (1, 4), (2, 2) and (4, 1) grids, ``all`` over an int8
+      executor (dequantized at placement) at (1, 4), ``rank_sharded``, and
+      a ``DiscoveryEngine(mode="sharded", grid=(2, 2))`` over the 64
+      planted queries. Every grid x kind is held against a plain sharded
+      pipeline (the same tiles through the plain probe and scorer, the
+      same two-phase merge): ids up to exact ties, ``n_scored`` exactly;
+      every grid's ``all`` against the local ``all``; the int8 scan
+      against the plain pipeline re-ranked exactly and against the
+      float32 scan (top-10 overlap >= 0.99); the engine against its own
+      executor. On one card a grid adds no device throughput: its
+      queries/s beside the local plan's show what tiling and the merge
+      cost.
    Each plan's ids are held against a plain pipeline over the same
    candidates (plain probes and plain scorers); the quantized top-10 must
    overlap the float32 one by at least 0.99. The model path's distances
@@ -92,7 +107,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import features as FT                      # noqa: E402
 from repro_torch.core.gbdt import GBDTConfig                      # noqa: E402
 from repro_torch.core import quality                              # noqa: E402
-from repro_torch.core.discovery import DiscoveryIndex, rank       # noqa: E402
+from repro_torch.core.discovery import (DiscoveryIndex, rank,     # noqa: E402
+                                        rank_sharded)
 from repro_torch.core.lakegen import (LakeSpec, ScaledLakeSpec,   # noqa: E402
                                       generate_lake, generate_scaled_lake,
                                       select_queries, select_scaled_queries)
@@ -102,7 +118,8 @@ from repro_torch.core.predictor import (POSITIVE_LABEL,           # noqa: E402
 from repro_torch.core.profiles import lake_profiles, profile_lake  # noqa: E402
 from repro_torch.device import from_bits, hashes_to_torch, to_bits  # noqa: E402
 from repro_torch.exec import stages                               # noqa: E402
-from repro_torch.exec.executor import Executor, pad_rows, pad_topk  # noqa: E402
+from repro_torch.exec.executor import (RESCORE_MULT, Executor,    # noqa: E402
+                                       pad_rows, pad_topk)
 from repro_torch.exec.plan import (DEFAULT_COLUMN_BUCKETS, Planner,  # noqa: E402
                                    PlannerConfig, QueryPlan)
 from repro_torch.kernels import _build, ops, ref                  # noqa: E402
@@ -115,7 +132,9 @@ from repro_torch.kernels.profile_distance import (                # noqa: E402
     fused_score_cuda, fused_score_q_cuda, profile_distance_cuda, quantize_profiles)
 from repro_torch.kernels.quality_cdf import quality_cdf_cuda      # noqa: E402
 from repro_torch.launch.bench_scorer import launch_floor          # noqa: E402
+from repro_torch.launch.mesh import make_grid_mesh                # noqa: E402
 from repro_torch.service import catalog                           # noqa: E402
+from repro_torch.service.catalog import CatalogSnapshot           # noqa: E402
 from repro_torch.service import (CatalogReader, CatalogStore,     # noqa: E402
                                  DiscoveryEngine, DiscoveryRequest, EngineConfig,
                                  EngineFleet, FaultInjector, RequestScheduler)
@@ -175,6 +194,8 @@ FOLLOW_LAKE = ScaledLakeSpec(n_columns=1024, seed=6)
 # refresh picks up
 N_REPLICAS, ROLL_LAKE = 2, ScaledLakeSpec(n_columns=1024, seed=7)
 PLAIN_ROWS = 64         # query rows per plain-pipeline chunk
+# the sharded path: grids over N_GRID_DEVICES copies of the card
+GRIDS, N_GRID_DEVICES = ((1, 4), (2, 2), (4, 1)), 4
 # the caching allocator hands out a cached block whole when splitting it
 # would leave under 1 MiB, so a freed tensor may release up to that much
 # more than its size rounded to 512 bytes
@@ -386,7 +407,10 @@ def _equal_nan(name, got, want) -> None:
 
 def check_ragged(dev) -> None:
     r = np.random.default_rng(0)
-    for q, n, t, d in [(1, 1, 1, 1), (5, 300, 50, 5), (13, 1029, 13, 6), (9, 77, 50, 8)]:
+    # (16, 25,000) shared and (16, 1,024) gathered: a 16-query batch's tiles
+    # on a (1, 4) grid over 100k columns at budget 4,096
+    for q, n, t, d in [(1, 1, 1, 1), (5, 300, 50, 5), (13, 1029, 13, 6), (9, 77, 50, 8),
+                       (16, 25_000, 50, 5), (16, 1024, 50, 5)]:
         zq, wq = _random_profiles(r, (q,), dev)
         g = _random_gbdt(r, t, d, dev)
         for lead in ((n,), (q, n)):
@@ -400,7 +424,7 @@ def check_ragged(dev) -> None:
         a, b = (hashes_to_torch(x, dev) for x in make_permutations(p, seed=2))
         if not torch.equal(ops.minhash(v, a, b), ref.minhash_ref(v, a, b)):
             raise AssertionError(f"minhash differs from its plain version at {(c, rows, p)}")
-    for q, c, b in [(1, 1, 1), (11, 777, 32), (3, 100, 256)]:
+    for q, c, b in [(1, 1, 1), (11, 777, 32), (3, 100, 256), (16, 25_000, 64)]:
         qk = hashes_to_torch(r.integers(0, 40, (q, b)).astype(np.uint32), dev)
         ck = hashes_to_torch(r.integers(0, 40, (c, b)).astype(np.uint32), dev)
         if not torch.equal(ops.lsh_probe(qk, ck), ref.lsh_probe_ref(qk, ck)):
@@ -1471,6 +1495,181 @@ def check_fleet_path(fleet_run: dict, dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: multi-device plans over four copies of the card
+# ---------------------------------------------------------------------------
+
+def _card(dev) -> torch.device:
+    return dev if dev.index is not None or dev.type != "cuda" else torch.device(
+        "cuda", torch.cuda.current_device())
+
+
+def sharded_path(run: dict, dev, reps=5) -> dict:
+    """3f: the main path's lake and queries over a grid mesh of
+    ``N_GRID_DEVICES`` copies of the card (its tiles run in turn on it):
+    ``all``, ``hybrid`` and ``lsh`` over float32 profiles on every grid of
+    ``GRIDS``, ``all`` over an int8 executor (dequantized at placement) at
+    (1, 4), ``rank_sharded`` once, and a ``DiscoveryEngine(mode="sharded",
+    grid=(2, 2))`` over the planted queries."""
+    prof, index, lake, model = run["prof"], run["index"], run["lake"], run["model"]
+    pool = [_card(dev)] * N_GRID_DEVICES
+    mesh = make_grid_mesh(1, N_GRID_DEVICES, devices=pool)
+    walls = run["walls"]
+    executors = {}
+    for dtype in ("fp32", "int8"):
+        t0 = time.perf_counter()
+        executors[dtype] = Executor(prof.zscored, prof.words, model.gbdt.astuple(),
+                                    table_ids=lake.table, band_keys=index.keys,
+                                    profile_dtype=dtype, mesh=mesh)
+        walls[f"place_sharded_{dtype}"] = sync_wall(t0)
+    planner = Planner(PlannerConfig(k=K))
+    n, qn = lake.n_columns, len(run["qids"])
+    plans, runs = {}, {}
+    for g in GRIDS:
+        hybrid = planner.plan(n_columns=n, n_queries=qn, mode="lsh", mesh=mesh, grid=g)
+        plans[g] = {"all": planner.plan(n_columns=n, n_queries=qn, mode="sharded",
+                                        mesh=mesh, grid=g),
+                    "hybrid": hybrid,
+                    "lsh": QueryPlan(candidates="lsh", sharded=True, budget=hybrid.budget,
+                                     k=K, grid=g)}
+        for kind, plan in plans[g].items():
+            runs[f"sharded_{kind}_{g[0]}x{g[1]}"] = (executors["fp32"], plan, run["batch"])
+    runs["sharded_all_int8_1x4"] = (executors["int8"], plans[(1, 4)]["all"], run["batch"])
+    run_plans(run, runs, reps)
+
+    t0 = time.perf_counter()
+    ranked = rank_sharded(DiscoveryIndex(prof, model, table_ids=lake.table), run["qids"],
+                          mesh, k=K)
+    walls["rank_sharded"] = sync_wall(t0)
+    snap = CatalogSnapshot(profiles=prof, signatures=run["sigs"], table_ids=lake.table,
+                           names=lake.batch.names,
+                           table_names={int(t): f"t{int(t)}" for t in np.unique(lake.table)},
+                           version=0)
+    t0 = time.perf_counter()
+    engine = DiscoveryEngine(snap, model, EngineConfig(k=K, mode="sharded", grid=(2, 2),
+                                                       cache_entries=0), mesh=mesh)
+    responses = engine.query_batch([DiscoveryRequest(name=f"q{int(q)}", column_id=int(q))
+                                    for q in run["qids"]])
+    walls["sharded_engine"] = sync_wall(t0)
+    log(f"sharded: rank_sharded at {qn} queries in {walls['rank_sharded'] * 1e3:.2f} ms; "
+        f"engine (mode sharded, grid (2, 2)) opened and served {len(responses)} requests in "
+        f"{walls['sharded_engine']:.3f} s; placements {walls['place_sharded_fp32']:.3f} s "
+        f"(fp32), {walls['place_sharded_int8']:.3f} s (int8, dequantized at placement)")
+    return dict(mesh=mesh, plans=plans, ranked=ranked, engine=engine, responses=responses)
+
+
+def plain_sharded(plan, grid, corpus, zq, wq, tq, qid, qk, g, dev, k=K):
+    """The grid pipeline with the plain probe and scorer: the same (query
+    shard, column shard) tiles and the same two-phase merge
+    (``stages.merge_topk_sharded``, ``stages.assemble_query_shards``).
+    ``corpus`` is (z, w, cids, tids, keys) on the card; the grid must divide
+    the batch and the lake."""
+    q_sh, d_sh = grid
+    z, w, cids, tids, ck = corpus
+    if zq.shape[0] % q_sh or z.shape[0] % d_sh:
+        raise ValueError(f"grid {grid} does not divide {zq.shape[0]} queries x "
+                         f"{z.shape[0]} columns")
+    ql, per = zq.shape[0] // q_sh, z.shape[0] // d_sh
+    rows = []
+    for qi in range(q_sh):
+        qs = slice(qi * ql, (qi + 1) * ql)
+        tiles = []
+        for di in range(d_sh):
+            cs = slice(di * per, (di + 1) * per)
+            excl = stages.exclusion_mask(cids[cs], tids[cs], tq[qs], qid[qs])
+            if plan.candidates == "all":
+                s = torch.where(excl, float("-inf"),
+                                ref.fused_score_ref(zq[qs], wq[qs], z[cs], w[cs], *g))
+                sc, ids = stages.merge_topk(s, cids[cs], k)
+                tiles.append((sc, ids, stages.live_count(cids[cs]).expand(ql)))
+                continue
+            prio = reference_candidates(plan.candidates, zq[qs], qk[qs], z[cs], ck[cs], excl)
+            pos, valid = stages.gather_candidates(prio, min(plan.budget_per_shard, per))
+            s = torch.where(valid, ref.fused_score_ref(zq[qs], wq[qs], z[cs][pos], w[cs][pos],
+                                                       *g), float("-inf"))
+            sc, ids = stages.merge_topk(s, cids[cs][pos], k)
+            tiles.append((sc, ids, valid.sum(1)))
+        rows.append(stages.merge_topk_sharded(tiles, k, (d_sh,), dev))
+    return stages.assemble_query_shards(rows, (q_sh,), dev)
+
+
+def check_sharded_path(run, sharded: dict, dev) -> dict:
+    """Hold every grid x kind against the plain sharded pipeline (ids up to
+    exact ties, ``n_scored`` exactly), every grid's ``all`` against the local
+    ``all``, the int8 scan against the plain pipeline over the dequantized
+    profiles re-ranked exactly and against the float32 scan (top-K overlap
+    >= OVERLAP_GATE), ``rank_sharded`` against the plain pipeline without
+    the table mask, and the engine's answers against its own executor."""
+    zq_np, wq_np, tq_np, qids, qk_np = run["batch"]
+    prof, model, lake = run["prof"], run["model"], run["lake"]
+    z32 = torch.from_numpy(prof.zscored.astype(np.float32)).to(dev)
+    w = hashes_to_torch(prof.words, dev)
+    corpus = (z32, w, torch.arange(z32.shape[0], device=dev),
+              torch.from_numpy(lake.table.astype(np.int64)).to(dev),
+              hashes_to_torch(run["index"].keys, dev))
+    zq = torch.from_numpy(zq_np).to(dev)
+    wq, qk = hashes_to_torch(wq_np, dev), hashes_to_torch(qk_np, dev)
+    tq = torch.from_numpy(tq_np.astype(np.int64)).to(dev)
+    qid = torch.from_numpy(qids.astype(np.int64)).to(dev)
+    g = gbdt_to_torch(model.gbdt.astuple(), dev)
+    local_s, local_i, _ = run["results"]["all"]
+    for grid, plans in sharded["plans"].items():
+        for kind, plan in plans.items():
+            name = f"sharded_{kind}_{grid[0]}x{grid[1]}"
+            sc, ids, n_scored = run["results"][name]
+            s_ref, i_ref, n_ref = plain_sharded(plan, grid, corpus, zq, wq, tq, qid, qk, g, dev)
+            _same_ranking(name, s_ref, i_ref, sc, ids)
+            if not np.array_equal(n_scored, n_ref.cpu().numpy()):
+                raise AssertionError(f"{name}: n_scored differs from the plain pipeline's")
+            if kind == "all":
+                _same_ranking(f"{name} vs local all", torch.from_numpy(local_s),
+                              torch.from_numpy(local_i), sc, ids)
+    # int8: the plain pipeline over the dequantized profiles, over-fetching
+    # RESCORE_MULT x K, then the exact re-rank
+    side, scale = quantize_profiles(prof.zscored.astype(np.float32), "int8")
+    zdq = torch.from_numpy(side).to(dev).to(torch.float32) * torch.from_numpy(scale).to(dev)
+    plan = sharded["plans"][(1, 4)]["all"]
+    s8, i8, n8 = plain_sharded(plan, (1, 4), (zdq,) + corpus[1:], zq, wq, tq, qid, qk, g, dev,
+                               k=RESCORE_MULT * K)
+    s8, i8 = reference_rerank(zq, wq, z32, w, g, s8, i8, K)
+    sc, ids, n_scored = run["results"]["sharded_all_int8_1x4"]
+    _same_ranking("sharded_all_int8_1x4", s8, i8, sc, ids)
+    if not np.array_equal(n_scored, n8.cpu().numpy()):
+        raise AssertionError("sharded_all_int8_1x4: n_scored differs from the plain pipeline's")
+    full = run["results"]["sharded_all_1x4"][1]
+    overlap = float(np.mean([len(set(a[a >= 0]) & set(b[b >= 0])) / max((b >= 0).sum(), 1)
+                             for a, b in zip(ids, full)]))
+    if overlap < OVERLAP_GATE:
+        raise AssertionError(f"sharded int8 all: top-{K} overlap {overlap} < {OVERLAP_GATE}")
+    # rank_sharded: the sharded full scan without the same-table mask
+    rplan = Planner(PlannerConfig(k=K)).plan(n_columns=lake.n_columns, n_queries=len(qids),
+                                             mode="sharded", mesh=sharded["mesh"])
+    none = torch.full_like(tq, -1)
+    s_ref, i_ref, _ = plain_sharded(rplan, rplan.grid, corpus, zq, wq, none, qid, qk, g, dev)
+    _same_ranking(f"rank_sharded at {rplan.grid}", s_ref, i_ref, *sharded["ranked"])
+    # the engine against its own executor, on the version and plan it served
+    engine = sharded["engine"]
+    last = engine.stats()["last_plan"]
+    if last["kind"] != "sharded-all" or last["grid"] != [2, 2]:
+        raise AssertionError(f"sharded engine ran {last['kind']} on grid {last['grid']}")
+    sc, ids, _ = engine._head.executor.execute(engine.last_plan, zq_np, wq_np, tq_np, qids)
+    for row, resp in enumerate(sharded["responses"]):
+        want = [(int(i), float(s)) for i, s in zip(ids[row], sc[row]) if np.isfinite(s)]
+        if [(m.column_id, m.score) for m in resp.matches] != want[:len(resp.matches)] or \
+                len(resp.matches) != min(K, len(want)):
+            raise AssertionError(f"sharded engine: request {resp.name} differs from its executor")
+    engine.close()
+    qps = {kind: {"local": run["qps"][kind],
+                  **{f"{g[0]}x{g[1]}": run["qps"][f"sharded_{kind}_{g[0]}x{g[1]}"]
+                     for g in GRIDS}} for kind in ("all", "hybrid", "lsh")}
+    log(f"check: sharded: every grid x kind equals the plain sharded pipeline (ids up to "
+        f"exact ties, n_scored exactly); every grid's all ranks as the local all; int8 all "
+        f"at (1, 4) equals the plain pipeline re-ranked, top-{K} overlap with float32 "
+        f"{overlap:.4f}; rank_sharded at {rplan.grid} equals the plain pipeline; the engine "
+        f"(grid (2, 2)) answered as its executor")
+    return dict(overlap=overlap, qps=qps)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernels at the main path's shapes and inputs
 # ---------------------------------------------------------------------------
 
@@ -1800,6 +1999,11 @@ def main() -> int:
                   "lsh_probe_gathered"), lambda: serve_path(run, dev))
     fleet_run, fleet_counts = counted(
         "fleet", ("fused_score", "lsh_probe", "minhash"), lambda: fleet_path(run, served, dev))
+    sharded, sharded_counts = counted(
+        "sharded", ("fused_score", "lsh_probe"), lambda: sharded_path(run, dev))
+    sharded_geometry = dict(_build.geometry_counts["fused_score"])
+    if not all(sharded_geometry.values()):
+        raise AssertionError(f"sharded path: fused_score launches by geometry {sharded_geometry}")
     counts = {"discovery": discovery, "scale": scale, "model": model}
     launches = {k: counts[PATH_OF[k]][k] for k in _build.KERNELS}
     t0 = time.perf_counter()
@@ -1808,6 +2012,7 @@ def main() -> int:
     check_model_path(run, dev)
     check_serve_path(served, dev, smi)
     check_fleet_path(fleet_run, dev, smi)
+    sharded_check = check_sharded_path(run, sharded, dev)
     shutil.rmtree(served["root"], ignore_errors=True)
     log(f"phase 3 check: {time.perf_counter() - t0:.2f} s")
     log(f"serve summary ({smi}): ingest {served['walls']['ingest']:.2f} s; "
@@ -1826,6 +2031,10 @@ def main() -> int:
                     for tag, b in (("burst 1", b1), ("burst 2 (kill)", b2)))
         + f"; re-dispatches {b2['redispatches']}; roll refresh "
         f"{fleet_run['walls']['roll'] * 1e3:.1f} ms; launches {fleet_counts}")
+
+    log(f"sharded summary ({smi}): queries/s by grid beside the local plan "
+        f"{sharded_check['qps']}; launches {sharded_counts}, fused_score by geometry "
+        f"{sharded_geometry}")
 
     # phase 4: kernels at the main path's shapes
     t0 = time.perf_counter()

@@ -1,13 +1,28 @@
 """Executor: runs a QueryPlan's candidate→score→merge pipeline on a corpus.
 
-The port of ``repro.exec.executor.Executor`` for local plans. One
-``Executor`` holds one immutable corpus view on its device — the profile
+The port of ``repro.exec.executor.Executor``. One ``Executor`` holds one
+immutable corpus view on its device — the profile
 matrix (float32, or an int8/float16 sidecar with its per-feature dequant
 scale), word hashes, table ids, optional LSH band keys and an optional
 coarse super-band digest — plus the GBDT parameters, and executes the
 ``all``, ``lsh``, ``hybrid`` and ``tiered`` pipelines against it. Scoring
 always goes through the fused scorers (``ops.fused_score`` and, over a
 sidecar, ``ops.fused_score_q``): the hand-written kernels on the card.
+
+**Sharded plans** run on the plan's 2-D ``grid=(q_shards, d_shards)`` over
+the executor's ``mesh`` (a :class:`~repro_torch.launch.mesh.DeviceMesh`):
+(1, d) grids keep the caller's mesh and ``shard_axes``; q > 1 grids re-shape
+its devices through ``make_grid_mesh``, cached per grid. The corpus is
+placed over each grid's data axis once (cached per (grid, axes) and shared
+by ``all`` and pruned plans; a successor built by ``extended`` places again
+on its first sharded batch), the batch is padded to a multiple of
+``q_shards`` and sliced back. Sharded tiles score float32 shards: a
+quantized corpus is dequantized once at placement. Its sharded scans
+over-fetch ``RESCORE_MULT × k`` for the exact re-rank, as the local ones
+do, where the JAX package's sharded scans re-rank only the k they return:
+the merged top ``RESCORE_MULT × k`` is the lake's, so a sharded quantized
+answer equals the local one up to exact ties. ``tiered`` plans are local
+only.
 
 With a quantized ``profile_dtype`` only the sidecar and its scale live on
 the device; the float32 source stays on the host. The scan over-fetches
@@ -18,7 +33,7 @@ float32-exact whatever the resident dtype.
 The returned contract is the JAX package's: numpy ``(scores (Q, k), global
 ids (Q, k), n_scored (Q,))``, padded with -inf / -1 when fewer than k
 columns are rankable, with ``n_scored`` the number of live columns the GBDT
-actually scored per query.
+actually scored per query (summed over the data shards on a grid).
 
 **Lifecycle.** The serving engine keeps one executor per catalog version:
 
@@ -54,7 +69,9 @@ from repro_torch.core.predictor import gbdt_to_torch
 from repro_torch.device import from_bits, hashes_to_torch, resolve_device, to_bits
 from repro_torch.exec import stages
 from repro_torch.exec.plan import QueryPlan
-from repro_torch.kernels.lsh_probe import PAD_CORPUS, PAD_QUERY
+from repro_torch.exec.sharded import (PAD_BITS, PAD_FILL, build_sharded_pipeline,
+                                      place_sharded_corpus)
+from repro_torch.kernels.lsh_probe import PAD_QUERY
 from repro_torch.kernels.profile_distance import dequantize, quantize_profiles
 
 # quantized scans over-fetch this multiple of k, then an exact float32
@@ -62,13 +79,6 @@ from repro_torch.kernels.profile_distance import dequantize, quantize_profiles
 # scores are threshold-discontinuous, so even fp16's ~5e-4 profile error
 # flips near-boundary ranks
 RESCORE_MULT = 4
-
-
-# pad-row fills of the resident tensors, by tensor (the int32 bit-views of
-# the band keys hold PAD_CORPUS as its signed 32-bit pattern)
-_PAD_BITS = int(np.uint32(PAD_CORPUS).view(np.int32))
-_FILL = {"z": 0, "w": FT.HASH_SENTINEL, "tids": -2, "cids": -1,
-         "ckeys": _PAD_BITS, "coarse": _PAD_BITS}
 
 
 class PlacementBundle:
@@ -159,14 +169,16 @@ def pad_topk(scores: np.ndarray, ids: np.ndarray, k: int):
 
 
 class Executor:
-    """Executes local query plans against one corpus view on ``device``.
+    """Executes query plans against one corpus view on ``device``, and
+    sharded plans over the tiles of ``mesh``.
 
     ``profile_dtype`` ("fp32", "fp16" or "int8") quantizes ``z`` into the
     resident sidecar; a caller that already quantized passes the sidecar as
     ``z`` and its scale as ``z_scale``. ``fp32_rows`` (``ids -> (..., F)
     float32``) overrides the host float32 source of the exact re-rank.
     ``n_padded`` pads the corpus to that many rows with sentinel rows;
-    ``events`` is a sink with ``publish(type, **payload)``.
+    ``events`` is a sink with ``publish(type, **payload)``. ``device``
+    defaults to the mesh's first device with a mesh, else to the card.
     """
 
     def __init__(self, z: np.ndarray, w: np.ndarray, gbdt_tuple, *,
@@ -175,8 +187,11 @@ class Executor:
                  coarse_keys: np.ndarray | None = None,
                  profile_dtype: str = "fp32", z_scale=None, fp32_rows=None,
                  survivor_block: int = 32, events=None,
-                 n_padded: int | None = None, device=None):
+                 n_padded: int | None = None, device=None, mesh=None):
+        if device is None and mesh is not None:
+            device = mesh.devices.flat[0]
         self.device = resolve_device(device)
+        self.mesh = mesh
         # n_live: the true resident columns; n_columns: the (bucket-padded)
         # corpus axis every plan clamp is computed from
         self.n_live = int(z.shape[0])
@@ -205,15 +220,15 @@ class Executor:
         # ``extended`` counts only its delta rows)
         self.bytes_uploaded = 0
         rows = dict(
-            z=self._upload(_pad_np(z_res, n, _FILL["z"])),
+            z=self._upload(_pad_np(z_res, n, PAD_FILL["z"])),
             w=from_bits(self._upload(_pad_np(_bits(w), n, -1))),   # -1: HASH_SENTINEL
-            tids=self._upload(_pad_np(tids, n, _FILL["tids"])).to(torch.int64),
+            tids=self._upload(_pad_np(tids, n, PAD_FILL["tids"])).to(torch.int64),
             cids=_live_ids(self.n_live, n, self.device),
             # the probes test key equality only: the resident keys are int32
             # bit-views, so no probe call converts the lake's keys
-            ckeys=(self._upload(_pad_np(_bits(band_keys), n, _PAD_BITS))
+            ckeys=(self._upload(_pad_np(_bits(band_keys), n, PAD_BITS))
                    if band_keys is not None else None),
-            coarse=(self._upload(_pad_np(_bits(coarse_keys), n, _PAD_BITS))
+            coarse=(self._upload(_pad_np(_bits(coarse_keys), n, PAD_BITS))
                     if coarse_keys is not None else None))
         self._zscale = self._upload(scale)
         self._adopt_rows(rows, PlacementBundle(dict(rows, zscale=self._zscale)))
@@ -250,6 +265,11 @@ class Executor:
         self._events = events
         self._closed = False
         self._tls = threading.local()
+        # sharded state, built lazily: grid meshes per grid, placements per
+        # (grid, data axes), pipelines per (kind, k, budget, axes, grid)
+        self._grid_meshes: dict[tuple, object] = {}
+        self._placed: dict[tuple, dict] = {}
+        self._pipelines: dict[tuple, object] = {}
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -261,6 +281,8 @@ class Executor:
         if self._closed:
             return
         self._closed = True
+        self._placed.clear()
+        self._pipelines.clear()
         self._z = self._w = self._cids = self._tids = self._ckeys = None
         self._zscale = self._coarse = None
         self._rows_bundle.release()
@@ -306,7 +328,7 @@ class Executor:
         n_pad2 = (max(int(n_padded), n_live2) if n_padded is not None
                   else max(self.n_columns, n_live2))
         ex = object.__new__(Executor)
-        ex.device, ex.profile_dtype = self.device, self.profile_dtype
+        ex.device, ex.mesh, ex.profile_dtype = self.device, self.mesh, self.profile_dtype
         ex.survivor_block = self.survivor_block
         ex.n_live, ex.n_columns = n_live2, n_pad2
         ex._fp32_rows = fp32_rows
@@ -325,7 +347,7 @@ class Executor:
                 ckeys=None if band_keys is None else ex._upload(_bits(band_keys)),
                 coarse=None if coarse_keys is None else ex._upload(_bits(coarse_keys)))
             rows = {k: None if old is None else
-                    _grown(old, self.n_live, delta[k], n_pad2, _FILL[k])
+                    _grown(old, self.n_live, delta[k], n_pad2, PAD_FILL[k])
                     for k, old in self._rows().items()}
             ex._adopt_rows(rows, PlacementBundle(dict(rows, zscale=ex._zscale)))
         ex._init_serving(self._events, warm=set(self._warm), seen=set(self._seen_shapes))
@@ -408,8 +430,14 @@ class Executor:
             return None
         if plan.candidates != "all" and self._ckeys is None:
             return None
-        if plan.candidates == "tiered" and self._coarse is None:
+        if plan.candidates == "tiered" and (plan.sharded or self._coarse is None):
             return None
+        if plan.sharded:
+            if self.mesh is None:
+                return None
+            qp = -(-q // plan.grid[0]) * plan.grid[0]
+            return ("sharded", qp, self.n_columns, self._sharded_key(plan),
+                    self._fp32_rows is not None)
         statics = self._local_spec(plan)
         name = {"all": "_local_all", "tiered": "_local_tiered"}.get(
             plan.candidates, "_local_pruned")
@@ -469,11 +497,15 @@ class Executor:
             if qkeys is None:
                 raise ValueError(f"plan {plan.kind!r} needs query band keys")
         if plan.candidates == "tiered":
+            if plan.sharded:
+                raise ValueError("tiered plans are local-only")
             if self._coarse is None:
                 raise ValueError("plan 'tiered' needs a coarse super-band "
                                  "digest, but this executor has none")
             if qcoarse is None:
                 raise ValueError("plan 'tiered' needs coarse query keys")
+        if plan.sharded and self.mesh is None:
+            raise ValueError(f"plan {plan.kind!r} needs a mesh")
         # first contact with this (kind, k, budget, grid, batch shape) is a
         # visible compile_begin/compile_end pair, its wall a thread-local
         # the engine folds into the request trace
@@ -518,18 +550,19 @@ class Executor:
         wq = hashes_to_torch(wq, dev)
         tq = torch.from_numpy(np.asarray(tq, np.int64)).to(dev)
         qid = torch.from_numpy(np.asarray(qid, np.int64)).to(dev)
-        spec = self._local_spec(plan)
         tier = None
-        if plan.candidates == "all":
-            sc, ids, n = self._local_all(zq, wq, tq, qid, **spec)
+        if plan.sharded:
+            sc, ids, n = self._run_sharded(plan, zq, wq, tq, qid, qkeys)
+        elif plan.candidates == "all":
+            sc, ids, n = self._local_all(zq, wq, tq, qid, **self._local_spec(plan))
         elif plan.candidates == "tiered":
             sc, ids, n, *tier = self._local_tiered(
                 zq, wq, to_bits(hashes_to_torch(qkeys, dev)),
-                to_bits(hashes_to_torch(qcoarse, dev)), tq, qid, **spec)
+                to_bits(hashes_to_torch(qcoarse, dev)), tq, qid, **self._local_spec(plan))
         else:
             sc, ids, n = self._local_pruned(
                 plan.candidates, zq, wq, to_bits(hashes_to_torch(qkeys, dev)), tq, qid,
-                **spec)
+                **self._local_spec(plan))
         if self._fp32_rows is not None:
             sc, ids = self._rescore(zq, wq, sc, ids, plan.k)
         sc, ids = pad_topk(sc.cpu().numpy(), ids.to(torch.int32).cpu().numpy(),
@@ -547,8 +580,7 @@ class Executor:
         """The k/budget clamps of the JAX executor's ``_local_spec``:
         quantized scans hand an over-fetched top set to the exact re-rank."""
         c = self.n_columns
-        k = (plan.k if self._fp32_rows is None
-             else max(plan.k, RESCORE_MULT * plan.k))
+        k = self._scan_k(plan)
         if plan.candidates == "all":
             return dict(k=min(k, c))
         budget = min(plan.budget, c)
@@ -602,6 +634,82 @@ class Executor:
         s = torch.where(valid2, self._score(zq, wq, gpos), float("-inf"))
         sc, ids = stages.merge_topk(s, self._cids[gpos], k)
         return sc, ids, valid2.sum(1), n_hits, n_surv
+
+    # -- sharded plans ------------------------------------------------------
+
+    def _grid_mesh(self, grid: tuple):
+        """(q, d) -> a (query × data × model) mesh over this executor's
+        devices, cached per geometry; the flat device order is kept."""
+        from repro_torch.launch.mesh import make_grid_mesh
+        grid = tuple(grid)
+        if grid not in self._grid_meshes:
+            self._grid_meshes[grid] = make_grid_mesh(grid[0], grid[1],
+                                                     devices=self.mesh.devices)
+        return self._grid_meshes[grid]
+
+    def _plan_mesh_axes(self, plan: QueryPlan):
+        """Mesh + (shard_axes, query_axes) a plan executes with: (1, d) grids
+        keep the caller's mesh and replicated queries (multi-axis
+        ``shard_axes`` included); q > 1 grids, or a caller mesh that already
+        has a non-trivial ``query`` axis, run on the re-shaped grid mesh."""
+        premade_q = ("query" in self.mesh.axis_names
+                     and int(self.mesh.shape["query"]) > 1)
+        if plan.grid[0] == 1 and not premade_q:
+            return self.mesh, tuple(plan.shard_axes), ()
+        return self._grid_mesh(plan.grid), ("data",), ("query",)
+
+    def _scan_k(self, plan: QueryPlan) -> int:
+        """The k a scan returns: quantized scans over-fetch for the exact
+        re-rank, sharded ones as local ones do."""
+        return plan.k if self._fp32_rows is None else max(plan.k, RESCORE_MULT * plan.k)
+
+    def _sharded_key(self, plan: QueryPlan) -> tuple:
+        """Identity of a sharded pipeline: (kind, scan k, budget per shard,
+        data axes, grid when the query axis is sharded)."""
+        _, axes, qaxes = self._plan_mesh_axes(plan)
+        return (plan.candidates, self._scan_k(plan),
+                plan.budget_per_shard if plan.candidates != "all" else 0,
+                axes, plan.grid if qaxes else ())
+
+    def _corpus(self, plan: QueryPlan) -> dict:
+        """The sharded placement ``plan`` reads: one per (mesh geometry, data
+        axes), band keys included whenever the executor has them, so an
+        ``all`` plan and a pruned plan share their shards."""
+        mesh, axes, qaxes = self._plan_mesh_axes(plan)
+        key = (plan.grid if qaxes else (), axes)
+        if key not in self._placed:
+            rows = dict(z=dequantize(self._z, self._zscale), w=self._w,
+                        cids=self._cids, tids=self._tids, ckeys=self._ckeys)
+            placed = place_sharded_corpus(mesh, axes, rows, qaxes)
+            devices = {dev for _, dev in placed["shards"]}
+            placed["gbdt"] = {dev: tuple(t.to(dev) if isinstance(t, torch.Tensor) else t
+                                         for t in self._gbdt) for dev in devices}
+            self._placed[key] = placed
+        return self._placed[key]
+
+    def _pipeline(self, plan: QueryPlan):
+        key = self._sharded_key(plan)
+        if key not in self._pipelines:
+            mesh, axes, qaxes = self._plan_mesh_axes(plan)
+            self._pipelines[key] = build_sharded_pipeline(
+                mesh, candidates=plan.candidates, k=self._scan_k(plan),
+                budget_per_shard=(plan.budget_per_shard
+                                  if plan.candidates != "all" else None),
+                shard_axes=axes, query_axes=qaxes)
+        return self._pipelines[key]
+
+    def _run_sharded(self, plan: QueryPlan, zq, wq, tq, qid, qkeys):
+        """The grid pipeline on the batch padded to a multiple of q_shards
+        (the repeated last row carries its own masks), sliced back."""
+        q = zq.shape[0]
+        qp = -(-q // plan.grid[0]) * plan.grid[0]
+        idx = torch.clamp(torch.arange(qp, device=self.device), max=q - 1)
+        keys = (None if qkeys is None else
+                to_bits(hashes_to_torch(qkeys, self.device))[idx])
+        corpus = self._corpus(plan)
+        sc, ids, n = self._pipeline(plan)(corpus, corpus["gbdt"], zq[idx], wq[idx],
+                                          tq[idx], qid[idx], keys, out=self.device)
+        return sc[:q], ids[:q], n[:q]
 
     def _rescore(self, zq, wq, sc, ids, k: int):
         """Gather the scan's (Q, R) candidates' float32 rows from the host

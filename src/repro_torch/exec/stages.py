@@ -1,6 +1,6 @@
 """Composable pipeline stages: candidate generation, scoring, top-k merge.
 
-The port of ``repro.exec.stages`` for local plans. Every discovery query is
+The port of ``repro.exec.stages``. Every discovery query is
 the same three-stage pipeline over the resident corpus:
 
 1. **candidates** — ``all`` (every live column), ``lsh`` (banded-MinHash
@@ -13,7 +13,8 @@ the same three-stage pipeline over the resident corpus:
 2. **score** — distance features + GBDT over the surviving columns, in the
    fused kernel ``kernels/csrc/fused_score.cu`` (``fused_score_q.cu`` for
    an int8 or float16 sidecar);
-3. **merge** — top-k.
+3. **merge** — top-k; on a device grid (``exec/sharded.py``) the two-phase
+   merge of :func:`merge_topk_sharded` and :func:`assemble_query_shards`.
 
 Top-k order. ``jax.lax.top_k`` puts the lower index first among equal
 values, and the ``lsh`` stage gives every hit the same priority, so tie
@@ -22,6 +23,7 @@ tie order, so every top-k here is a stable descending sort, sliced.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -160,3 +162,45 @@ def merge_topk(scores, cids, k: int):
         cids = cids[None].expand(scores.shape[0], -1)
     ids = torch.gather(cids, 1, pos)
     return sc, torch.where(torch.isfinite(sc), ids, -1)
+
+
+def gather_order(axis_sizes) -> list[int]:
+    """Flat shard indices (row-major over mesh axes of ``axis_sizes``) in
+    the order JAX's per-axis tiled ``all_gather``s concatenate them: the
+    first axis gathers innermost, so over ("pod", "data") the order is
+    data-major, not the flat shard index. Exact ties then resolve as
+    ``jax.lax.top_k`` resolves them over the gathered union."""
+    sizes = tuple(int(s) for s in axis_sizes)
+    idx = np.arange(int(np.prod(sizes, dtype=np.int64))).reshape(sizes)
+    return [int(i) for i in idx.transpose(tuple(reversed(range(len(sizes))))).reshape(-1)]
+
+
+def merge_topk_sharded(tiles, k: int, axis_sizes, device):
+    """Phase 1 of the grid merge: one query shard's per-data-shard results
+    -> its global top-k on ``device``.
+
+    ``tiles`` holds one ``(scores (Q_l, k_l), ids (Q_l, k_l), n_scored
+    (Q_l,))`` per data shard, by flat shard index over the data axes of
+    ``axis_sizes``. The (Q_l, k_l) pairs move to ``device`` (a peer copy
+    between cards, O(Q_l·k·d_shards) bytes), concatenate in the gather
+    order and are ranked once more. ``n_scored`` sums over the data shards
+    only. Returns (scores (Q_l, k'), ids (Q_l, k'), n_scored (Q_l,))."""
+    parts = [tiles[i] for i in gather_order(axis_sizes)]
+    s = torch.cat([p[0].to(device, non_blocking=True) for p in parts], 1)
+    i = torch.cat([p[1].to(device, non_blocking=True) for p in parts], 1)
+    n = sum(p[2].to(device, non_blocking=True) for p in parts)
+    gs, gp = topk_stable(s, min(k, s.shape[1]))
+    gi = torch.gather(i, 1, gp)
+    return gs, torch.where(torch.isfinite(gs), gi, -1), n
+
+
+def assemble_query_shards(rows, axis_sizes, device):
+    """Phase 2 of the grid merge: reassemble the query batch on ``device``.
+
+    ``rows`` holds each query shard's finished ``(scores, ids, n_scored)``
+    by flat shard index over the query axes of ``axis_sizes``; they
+    concatenate along the batch axis in the gather order (batch order for
+    one query axis), O(Q·k) bytes whatever the lake size."""
+    parts = [rows[i] for i in gather_order(axis_sizes)]
+    return tuple(torch.cat([p[j].to(device, non_blocking=True) for p in parts], 0)
+                 for j in range(3))

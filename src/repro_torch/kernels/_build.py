@@ -19,6 +19,7 @@ scorers' launches by corpus geometry (``shared`` or ``gathered``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -196,6 +197,20 @@ def sm_count(device) -> int:
     if n is None:
         n = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
     return n
+
+
+@contextlib.contextmanager
+def on_device(t):
+    """Make ``t``'s card the calling thread's current device for the block,
+    and give the block that device's current stream (a ``cudaStream_t``
+    handle). Every ctypes launch runs inside it: ``cudaMemcpyToSymbolAsync``
+    into the constant bank, ``cudaFuncSetAttribute`` and ``<<<>>>`` act on
+    the thread's current device, not on the stream's, so a tensor on
+    ``cuda:1`` launched from a thread whose current device is 0 would stage
+    its ensemble into device 0's constant bank and launch there."""
+    import torch
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
 
 
 def expect(op: str, t, name: str, dtype, shape) -> None:

@@ -33,9 +33,8 @@ def gbdt_infer_cuda(x, feats, thrs, leaves, base: float):
     out = torch.empty((n,), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     n_sms = _build.sm_count(x.device)
-    with _build.staging_locks[op]:
+    with _build.on_device(x) as stream, _build.staging_locks[op]:
         err = lib.freyja_gbdt_infer(x.data_ptr(), feats.data_ptr(), thrs.data_ptr(),
                                     leaves.data_ptr(), float(base), out.data_ptr(), n, f,
                                     t, d, n_sms, stream)

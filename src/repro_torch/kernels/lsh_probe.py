@@ -22,9 +22,7 @@ PAD_CORPUS = np.uint32(0xFFFFFFFE)
 
 
 def _expect_keys(op: str, name: str, t: torch.Tensor, dim: int) -> None:
-    if t.device.type != "cuda" or t.dtype != torch.int32 or not t.is_contiguous():
-        raise ValueError(f"{op}: {name} must be a contiguous CUDA int32 "
-                         f"tensor, got {t.dtype} on {t.device}")
+    _build.expect(op, t, name, torch.int32, t.shape)
     if t.dim() != dim:
         raise ValueError(f"{op}: {name} must be {dim}-D, got {tuple(t.shape)}")
 
@@ -49,9 +47,9 @@ def lsh_probe_cuda(qkeys_bits, ckeys_bits):
     out = torch.empty((q, c), dtype=torch.int32, device=qkeys_bits.device)
     lib = _build.library("lsh_probe")
     _check_bands("lsh_probe", b, lib.freyja_lsh_probe_max_bands())
-    stream = torch.cuda.current_stream(qkeys_bits.device).cuda_stream
-    err = lib.freyja_lsh_probe(qkeys_bits.data_ptr(), ckeys_bits.data_ptr(),
-                               out.data_ptr(), q, c, b, stream)
+    with _build.on_device(qkeys_bits) as stream:
+        err = lib.freyja_lsh_probe(qkeys_bits.data_ptr(), ckeys_bits.data_ptr(),
+                                   out.data_ptr(), q, c, b, stream)
     _build.check("lsh_probe", err)
     _build.count_launch("lsh_probe")
     return out
@@ -90,11 +88,11 @@ def lsh_probe_gathered_cuda(qkeys_bits, ckeys_bits, pos=None):
     out = torch.empty((q, c), dtype=torch.int32, device=qkeys_bits.device)
     lib = _build.library(op)
     _check_bands(op, b, lib.freyja_lsh_probe_gathered_max_bands())
-    stream = torch.cuda.current_stream(qkeys_bits.device).cuda_stream
-    err = lib.freyja_lsh_probe_gathered(qkeys_bits.data_ptr(), ckeys_bits.data_ptr(),
-                                        None if pos is None else pos.data_ptr(),
-                                        out.data_ptr(), q, c, b, n_table,
-                                        _build.sm_count(qkeys_bits.device), stream)
+    n_sms = _build.sm_count(qkeys_bits.device)
+    with _build.on_device(qkeys_bits) as stream:
+        err = lib.freyja_lsh_probe_gathered(qkeys_bits.data_ptr(), ckeys_bits.data_ptr(),
+                                            None if pos is None else pos.data_ptr(),
+                                            out.data_ptr(), q, c, b, n_table, n_sms, stream)
     _build.check(op, err)
     _build.count_launch(op)
     return out

@@ -27,9 +27,7 @@ def minhash_cuda(values_bits, a_bits, b_bits):
     (P,): int32 bit-views of uint32 hashes on one CUDA device -> (C, P) int32
     bit-views of the signatures."""
     for name, t in (("values", values_bits), ("a", a_bits), ("b", b_bits)):
-        if t.device.type != "cuda" or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"minhash: {name} must be a contiguous CUDA int32 "
-                             f"tensor, got {t.dtype} on {t.device}")
+        _build.expect("minhash", t, name, torch.int32, t.shape)
     if values_bits.dim() != 2 or a_bits.dim() != 1 or a_bits.shape != b_bits.shape:
         raise ValueError(f"minhash: want values (C, R) and a, b (P,), got "
                          f"{tuple(values_bits.shape)}, {tuple(a_bits.shape)}, "
@@ -40,9 +38,9 @@ def minhash_cuda(values_bits, a_bits, b_bits):
     if c == 0 or p == 0:
         return out
     lib = _build.library("minhash")
-    stream = torch.cuda.current_stream(values_bits.device).cuda_stream
-    err = lib.freyja_minhash(values_bits.data_ptr(), a_bits.data_ptr(),
-                             b_bits.data_ptr(), out.data_ptr(), c, r, p, stream)
+    with _build.on_device(values_bits) as stream:
+        err = lib.freyja_minhash(values_bits.data_ptr(), a_bits.data_ptr(),
+                                 b_bits.data_ptr(), out.data_ptr(), c, r, p, stream)
     _build.check("minhash", err)
     _build.count_launch("minhash")
     return out

@@ -123,11 +123,10 @@ def _launch(op: str, zq, wq_bits, zc, scale, wc_bits, feats, thrs, leaves, base:
     out = torch.empty((q, n), dtype=torch.float32, device=zq.device)
     if q == 0 or n == 0:
         return out
-    stream = torch.cuda.current_stream(zq.device).cuda_stream
     n_sms = _build.sm_count(zq.device)
     trees = (feats.data_ptr(), thrs.data_ptr(), leaves.data_ptr(), float(base),
              out.data_ptr(), q, n, n if gathered else 0, t, d)
-    with _build.staging_locks[op]:
+    with _build.on_device(zq) as stream, _build.staging_locks[op]:
         if scale is None:
             err = lib.freyja_fused_score(zq.data_ptr(), wq_bits.data_ptr(), zc.data_ptr(),
                                          wc_bits.data_ptr(), *trees, n_sms, stream)
@@ -173,9 +172,9 @@ def profile_distance_cuda(zq, wq_bits, zc, wc_bits):
     if q == 0 or n == 0:
         return out
     lib = _build.library(op)
-    stream = torch.cuda.current_stream(zq.device).cuda_stream
-    err = lib.freyja_profile_distance(zq.data_ptr(), wq_bits.data_ptr(), zc.data_ptr(),
-                                      wc_bits.data_ptr(), out.data_ptr(), q, n, stream)
+    with _build.on_device(zq) as stream:
+        err = lib.freyja_profile_distance(zq.data_ptr(), wq_bits.data_ptr(), zc.data_ptr(),
+                                          wc_bits.data_ptr(), out.data_ptr(), q, n, stream)
     _build.check(op, err)
     _build.count_launch(op)
     return out

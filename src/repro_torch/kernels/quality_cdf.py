@@ -28,11 +28,12 @@ def quality_cdf_cuda(j, k, mu_j: float, sigma_j: float, mu_k: float, sigma_k: fl
     if n == 0:
         return out
     lib = _build.library(op)
-    stream = torch.cuda.current_stream(j.device).cuda_stream
-    err = lib.freyja_quality_cdf(j.data_ptr(), k.data_ptr(), out.data_ptr(), n,
-                                 mu_j, sigma_j, *standardized_bounds(mu_j, sigma_j, lo, hi),
-                                 mu_k, sigma_k, *standardized_bounds(mu_k, sigma_k, lo, hi),
-                                 _build.sm_count(j.device), stream)
+    n_sms = _build.sm_count(j.device)
+    with _build.on_device(j) as stream:
+        err = lib.freyja_quality_cdf(j.data_ptr(), k.data_ptr(), out.data_ptr(), n,
+                                     mu_j, sigma_j, *standardized_bounds(mu_j, sigma_j, lo, hi),
+                                     mu_k, sigma_k, *standardized_bounds(mu_k, sigma_k, lo, hi),
+                                     n_sms, stream)
     _build.check(op, err)
     _build.count_launch(op)
     return out

@@ -25,8 +25,11 @@ BENCH_service.json`` fits the planner's cost model from measured timings;
 ``--replicas N`` serves through an :class:`EngineFleet` of N catalog
 followers behind the load-aware router, each on its own device from
 ``make_replica_devices`` (on one card, or with ``--device cpu``, they share
-it). ``--grid``/``--mode sharded`` (multi-device plans, ``ROADMAP.md``
-queue 7) are not ported and raise.
+it). ``--mesh`` serves over a mesh of every visible card (the one host
+device under ``--device cpu``): ``--mode sharded`` is the full scan over it,
+``--mode lsh`` shards the pruned plan over a mesh of several devices,
+``--grid QxD`` pins the (query x data) device grid, and with ``--replicas``
+each replica takes its slice of the mesh's devices.
 """
 from __future__ import annotations
 
@@ -50,10 +53,24 @@ def serve_mode(args, lake, model, dev):
                                      DiscoveryRequest, EngineConfig, LSHConfig,
                                      add_lake, measure_recall, serve_discovery)
 
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_local_mesh
+        mesh = make_local_mesh(devices=_mesh_devices(dev))
+        print(f"mesh: {dict(mesh.shape)} ({len(mesh.devices.flat)} devices)")
+
+    grid = None
     if args.grid:
-        raise NotImplementedError(
-            "--grid: sharded plans are not ported yet; they wait for the "
-            "multi-device slice (ROADMAP.md queue 7)")
+        if mesh is None:
+            raise SystemExit("--grid needs --mesh")
+        try:
+            grid = tuple(int(x) for x in args.grid.lower().split("x"))
+            if len(grid) != 2:
+                raise ValueError(args.grid)
+        except ValueError:
+            raise SystemExit(f"--grid wants QxD (e.g. 2x4), got {args.grid!r}")
+        print(f"grid: {grid[0]} query shards x {grid[1]} data shards")
+
     t0 = time.perf_counter()
     catalog = CatalogStore(args.catalog, device=dev)
     if not catalog.tables():
@@ -82,7 +99,7 @@ def serve_mode(args, lake, model, dev):
               f"fixed={1e3*constants['fixed_s_per_query']:.3f} ms/query")
 
     if args.replicas > 1:
-        fleet_mode(args, lake, model, cost_fn, dev)
+        fleet_mode(args, lake, model, cost_fn, grid, dev)
         return
 
     # restart path: a fresh process would do exactly this
@@ -90,11 +107,11 @@ def serve_mode(args, lake, model, dev):
         CatalogStore(args.catalog, device=dev), model,
         EngineConfig(k=args.k, mode=args.mode,
                      lsh=LSHConfig(n_bands=args.lsh_bands),
-                     cost_fn=cost_fn,
+                     cost_fn=cost_fn, grid=grid,
                      metrics=args.metrics_port is not None,
                      warmup=(False if args.warmup == "off" else args.warmup),
                      executable_cache_dir=args.executable_cache),
-        device=dev)
+        device=dev, mesh=mesh)
     if engine.warmup_report is not None:
         rep = engine.warmup_report
         print(f"warmup[{rep['scope']}]: {rep['n_executables']} units over "
@@ -119,6 +136,7 @@ def serve_mode(args, lake, model, dev):
     stats = engine.stats()
     plan = stats.get("last_plan", {})
     print(f"plan: {plan.get('kind')} budget={plan.get('budget')} "
+          f"grid={'x'.join(map(str, plan.get('grid', [1, 1])))} "
           f"(~{plan.get('cost', {}).get('total_flops', 0)/1e6:.2f} MFLOP/batch); "
           f"cache {stats['cache']['hits']}h/{stats['cache']['misses']}m, "
           f"plans={stats['plans']}")
@@ -154,20 +172,29 @@ def serve_mode(args, lake, model, dev):
     engine.close()
 
 
-def fleet_mode(args, lake, model, cost_fn, dev) -> None:
+def _mesh_devices(dev) -> list:
+    """The device pool of ``--mesh`` and ``--replicas``: every visible card
+    for ``--device`` unset (``cuda``), else the one device asked for."""
+    if dev == torch.device("cuda"):
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def fleet_mode(args, lake, model, cost_fn, grid, dev) -> None:
     """``--replicas N``: serve through an :class:`EngineFleet` of catalog
     followers behind the load-aware router. ``--device`` unset (``cuda``)
     spreads the replicas over every visible card; any other device holds
-    them all."""
+    them all. With ``--mesh`` a replica whose slice holds several devices
+    serves sharded plans over it."""
     from repro_torch.service import (DiscoveryRequest, EngineConfig, EngineFleet,
                                      LSHConfig, serve_discovery)
 
-    devices = None if dev == torch.device("cuda") else [dev]
+    devices = _mesh_devices(dev)
     fleet = EngineFleet.from_catalog(
         args.catalog, model,
         EngineConfig(k=args.k, mode=args.mode,
                      lsh=LSHConfig(n_bands=args.lsh_bands),
-                     cost_fn=cost_fn,
+                     cost_fn=cost_fn, grid=grid,
                      metrics=args.metrics_port is not None,
                      warmup=(False if args.warmup == "off" else args.warmup),
                      executable_cache_dir=args.executable_cache),
@@ -176,8 +203,7 @@ def fleet_mode(args, lake, model, cost_fn, dev) -> None:
         fleet.warm_event.wait(timeout=300)
         st = fleet.stats()
         slices = {rid: v["state"] for rid, v in st["replicas"].items()}
-        n_dev = torch.cuda.device_count() if devices is None else len(devices)
-        print(f"fleet: {args.replicas} replicas over {n_dev} devices, "
+        print(f"fleet: {args.replicas} replicas over {len(devices)} devices, "
               f"states {slices}")
         metrics_server = None
         if args.metrics_port is not None:
@@ -258,15 +284,23 @@ def main(argv=None):
                     help="serve queries through the online engine")
     ap.add_argument("--mode", default="lsh",
                     choices=["lsh", "full", "auto", "tiered", "sharded"],
-                    help="engine mode ('sharded' is not ported and raises)")
+                    help="engine mode ('sharded' needs --mesh)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve over a mesh of every visible card (the one "
+                         "host device with --device cpu)")
     ap.add_argument("--grid", default=None, metavar="QxD",
-                    help="pin a (query x data) device grid (not ported; raises)")
+                    help="pin the (query x data) device grid for sharded "
+                         "plans, e.g. 2x4 (needs --mesh; Q*D must equal the "
+                         "device count). Default: the planner factorizes "
+                         "the mesh per batch from batch size, lake size, "
+                         "and the cost model")
     ap.add_argument("--lsh-bands", type=int, default=64)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--replicas", type=int, default=1, metavar="N",
                     help="serve through an EngineFleet of N catalog-follower "
-                         "replicas behind the load-aware router (one device "
-                         "each from make_replica_devices; warm->serve->drain->"
+                         "replicas behind the load-aware router (each on its "
+                         "own device slice, a mesh of it with --mesh; "
+                         "warm->serve->drain->"
                          "evict lifecycle, health-check eviction, batch "
                          "re-dispatch)")
     ap.add_argument("--follow", action="store_true",

@@ -1,42 +1,119 @@
-"""Device placement for the replica fleet.
+"""Device meshes: the local, grid and replica builders.
 
-The port of ``repro.launch.mesh.make_replica_meshes``. A JAX replica gets a
-``(data, model)`` sub-mesh; a port replica gets one ``torch.device``, since
-the port's engine runs every plan on one device until sharded plans exist
-(``ROADMAP.md`` queue 7). The other mesh builders of the JAX module
-(production, local and grid meshes) belong to that slice.
+The port of ``repro.launch.mesh``. A :class:`DeviceMesh` is what a JAX
+``Mesh`` is to the planner and the sharded executor: an n-d array of devices
+with a name per axis. The port is single-controller, as the JAX package is:
+one process drives every tile of a sharded plan, placing each on its device
+and moving the small (Q, k) merge tiles between cards with peer copies.
+
+**A device may appear more than once** in a mesh. Its tiles then run in turn
+on it: one card (or the host, ``torch.device("cpu")``) stands in for several,
+as XLA's forced host-device count does for JAX on a CPU. The tests build
+8-device meshes over ``[torch.device("cpu")] * 8`` this way; it is a test
+affordance, not a deployment.
+
+``make_production_mesh`` (a 256-chip TPU pod) has no counterpart here.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
-def make_replica_devices(n_replicas: int, *, devices=None) -> list[torch.device]:
-    """One ``torch.device`` per replica of an engine fleet.
+class DeviceMesh:
+    """An n-d array of ``torch.device`` with one name per axis.
 
-    ``devices`` is the pool (default: every visible CUDA card; a host with
-    no card raises, so the CPU is used only when the caller passes it, as
-    in ``devices=[torch.device("cpu")]``). The pool is cut into
-    ``n_replicas`` contiguous slices of ``len(devices) // n_replicas``, as
-    JAX cuts its meshes, and each replica takes the first device of its
-    slice: a slice of several cards uses only its first card until sharded
-    plans exist. A non-dividing replica count leaves the tail of the pool
-    unused. With fewer devices than replicas every replica takes
-    ``devices[0]``, the counterpart of the JAX package's ``None`` (one
-    shared device).
-    """
-    n_replicas = int(n_replicas)
-    if n_replicas < 1:
-        raise ValueError(f"n_replicas must be >= 1; got {n_replicas}")
+    ``devices`` is the object array; ``shape`` maps each axis name to its
+    size, in axis order (the planner reads only ``mesh.shape[axis]``)."""
+
+    def __init__(self, devices, axis_names):
+        arr = _pool(devices).reshape(np.shape(devices))
+        axis_names = tuple(axis_names)
+        if arr.ndim != len(axis_names):
+            raise ValueError(f"{arr.ndim}-d devices for axes {axis_names}")
+        self.devices = arr
+        self.axis_names = axis_names
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def __repr__(self) -> str:
+        return f"DeviceMesh({self.shape}, {sorted({str(d) for d in self.devices.flat})})"
+
+
+def _pool(devices) -> np.ndarray:
+    """The flat device pool: ``devices``, or every visible card (a host
+    without one raises unless the caller passes its devices)."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is present; pass "
                                "devices=[torch.device('cpu')] to run on the host")
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    pool = [torch.device(d) for d in devices]
-    if not pool:
+    flat = list(np.asarray(devices, dtype=object).reshape(-1))
+    pool = np.empty(len(flat), dtype=object)
+    for i, d in enumerate(flat):
+        pool[i] = torch.device(d)
+    return pool
+
+
+def make_local_mesh(model: int = 1, *, devices=None) -> DeviceMesh:
+    """A ``(data, model)`` mesh over ``devices`` (default: every visible
+    card), the model axis holding ``model`` devices."""
+    devs = _pool(devices)
+    data = devs.size // model
+    return DeviceMesh(devs[:data * model].reshape(data, model), ("data", "model"))
+
+
+def make_replica_meshes(n_replicas: int, *, devices=None, model: int = 1) -> list:
+    """Cut the pool into ``n_replicas`` contiguous slices, one ``(data,
+    model)`` mesh each, as the JAX package cuts its device set for the
+    fleet. A slice of fewer than two devices (or than ``model``) gives every
+    replica ``None``: one device each, the degenerate slice. A
+    non-dividing replica count leaves the tail of the pool unused."""
+    devs = _pool(devices)
+    n_replicas = int(n_replicas)
+    if n_replicas < 1:
+        raise ValueError(f"n_replicas must be >= 1; got {n_replicas}")
+    per = devs.size // n_replicas
+    if per < max(model, 1) or per < 2:
+        return [None] * n_replicas
+    per -= per % model                   # keep the model axis dividing
+    return [DeviceMesh(devs[i * per:(i + 1) * per].reshape(per // model, model),
+                       ("data", "model")) for i in range(n_replicas)]
+
+
+def make_grid_mesh(q_shards: int, d_shards: int, *, devices=None) -> DeviceMesh:
+    """2-D (query × data) grid mesh for discovery serving.
+
+    ``q_shards`` shards the query batch, ``d_shards`` the lake's column axis;
+    each (query, data) cell scores one tile. The pool's size must be a
+    multiple of ``q_shards × d_shards``; the quotient becomes a trailing
+    ``model`` axis, replicated by discovery placements. The flat device
+    order is kept, so a (1, d) grid places its shards as the caller's own
+    ``(data, model)`` mesh does."""
+    devs = _pool(devices)
+    n = q_shards * d_shards
+    if n <= 0 or devs.size % n:
+        raise ValueError(f"grid ({q_shards}, {d_shards}) does not tile "
+                         f"{devs.size} devices")
+    return DeviceMesh(devs.reshape(q_shards, d_shards, devs.size // n),
+                      ("query", "data", "model"))
+
+
+def make_replica_devices(n_replicas: int, *, devices=None) -> list[torch.device]:
+    """One ``torch.device`` per replica of an engine fleet: the first device
+    of each slice :func:`make_replica_meshes` cuts (a replica whose slice
+    holds two or more devices also gets that slice's mesh from it). With
+    fewer devices than replicas every replica takes ``devices[0]``, the
+    counterpart of the JAX package's ``None`` (one shared device)."""
+    n_replicas = int(n_replicas)
+    if n_replicas < 1:
+        raise ValueError(f"n_replicas must be >= 1; got {n_replicas}")
+    pool = _pool(devices)
+    if pool.size == 0:
         raise ValueError("make_replica_devices needs at least one device")
-    per = len(pool) // n_replicas
+    per = pool.size // n_replicas
     if per < 1:
         return [pool[0]] * n_replicas
     return [pool[i * per] for i in range(n_replicas)]

@@ -32,11 +32,18 @@ module owns only serving concerns:
   plans the mode serves, run once before traffic;
 * per-plan serving statistics via :meth:`DiscoveryEngine.stats`.
 
-Modes (``EngineConfig.mode``): ``lsh`` (the hybrid pruned plan), ``full``
-(brute scan), ``tiered`` (coarse digest, then the fine tier over the
-survivors) and ``auto`` (the planner picks by cost). Sharded plans
-(``mode="sharded"``, a ``grid``, other ``shard_axes``) wait for the
-multi-device slice (``ROADMAP.md`` queue 7) and raise.
+Modes (``EngineConfig.mode``): ``lsh`` (the hybrid pruned plan, sharded
+over the mesh when the engine has one of several devices), ``full`` (brute
+scan on one device), ``sharded`` (brute scan over the mesh), ``tiered``
+(coarse digest, then the fine tier over the survivors; local only) and
+``auto`` (the planner picks by cost, sharding when the lake justifies the
+mesh).
+
+Sharded plans place work on a 2-D (query × data) device grid over the
+engine's ``mesh`` (a :class:`~repro_torch.launch.mesh.DeviceMesh`): the
+planner factorizes the mesh into ``grid=(q_shards, d_shards)`` per
+micro-batch, or the operator pins one with ``EngineConfig.grid``. The
+executed grid is surfaced in ``stats()["last_plan"]``.
 """
 from __future__ import annotations
 
@@ -54,8 +61,7 @@ from repro_torch.core.ingest import ingest_string_columns
 from repro_torch.core.predictor import JoinQualityModel
 from repro_torch.device import resolve_device
 from repro_torch.exec.executor import Executor, pad_rows
-from repro_torch.exec.plan import (_SHARDED_LATER, DEFAULT_BATCH_BUCKETS, MODES,
-                                   Planner, PlannerConfig)
+from repro_torch.exec.plan import DEFAULT_BATCH_BUCKETS, MODES, Planner, PlannerConfig
 from repro_torch.kernels.profile_distance import quantize_profiles_streamed
 from repro_torch.service import events as EV
 from repro_torch.service.api import ColumnMatch, DiscoveryRequest, DiscoveryResponse
@@ -77,7 +83,7 @@ _NO_EXECUTABLE_CACHE = (
 @dataclasses.dataclass
 class EngineConfig:
     k: int = 10
-    mode: str = "lsh"          # "lsh" | "full" | "auto" | "tiered"
+    mode: str = "lsh"          # "lsh" | "full" | "sharded" | "auto" | "tiered"
     lsh: LSHConfig = dataclasses.field(default_factory=LSHConfig)
     candidate_frac: float = 0.2        # LSH budget as a fraction of the lake
     max_candidates: int = 4096         # absolute cap on that budget
@@ -94,10 +100,11 @@ class EngineConfig:
     batch_buckets: tuple | None = None
     cache_entries: int = 1024
     exclude_same_table: bool = True
-    # the sharded placement of the JAX package: only the defaults (no
-    # grid, the data axis) are accepted until sharded plans are ported
     shard_axes: tuple = ("data",)
     cost_fn: Callable | None = None    # measured cost model (planner hook)
+    # (q_shards, d_shards) device grid for sharded plans; None lets the
+    # planner factorize the mesh per micro-batch from batch size, lake size
+    # and the cost model
     grid: tuple | None = None
     # observability: True stands up an EventBus (engine.events) + the
     # standard ServiceMetrics registry (engine.metrics) — every serving
@@ -161,20 +168,27 @@ class _VersionState:
 
 
 class DiscoveryEngine:
-    """Serves discovery queries from pinned catalog snapshots."""
+    """Serves discovery queries from pinned catalog snapshots.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.DeviceMesh`) is where
+    sharded plans run; local plans and query profiling run on ``device``,
+    which defaults to the mesh's first device with a mesh, else the card."""
 
     def __init__(self, snapshot: CatalogSnapshot, model: JoinQualityModel,
-                 config: EngineConfig | None = None, *, device=None, events=None):
+                 config: EngineConfig | None = None, *, device=None, mesh=None,
+                 events=None):
         config = config if config is not None else EngineConfig()
-        if (config.mode == "sharded" or config.grid is not None
-                or tuple(config.shard_axes) != ("data",)):
-            raise NotImplementedError(_SHARDED_LATER)
         if config.mode not in MODES:
             raise ValueError(f"unknown mode {config.mode!r}; "
                              f"want one of {MODES}")
+        if config.mode == "sharded" and mesh is None:
+            raise ValueError("sharded mode needs a mesh")
         if config.executable_cache_dir is not None:
             raise NotImplementedError(_NO_EXECUTABLE_CACHE)
+        if device is None and mesh is not None:
+            device = mesh.devices.flat[0]
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.config = config
         self.model = model
         self.planner = Planner(PlannerConfig(
@@ -182,6 +196,7 @@ class DiscoveryEngine:
             max_candidates=config.max_candidates,
             n_bands=config.lsh.n_bands,
             n_coarse_bands=config.lsh.n_coarse_bands,
+            shard_axes=tuple(config.shard_axes),
             batch_buckets=tuple(config.batch_buckets or ()),
             column_buckets=tuple(config.column_buckets or ())),
             cost_fn=config.cost_fn)
@@ -230,8 +245,8 @@ class DiscoveryEngine:
 
     @classmethod
     def from_catalog(cls, catalog: CatalogStore, model: JoinQualityModel,
-                     config: EngineConfig | None = None, *, device=None):
-        return cls(catalog.snapshot(), model, config=config, device=device)
+                     config: EngineConfig | None = None, *, device=None, mesh=None):
+        return cls(catalog.snapshot(), model, config=config, device=device, mesh=mesh)
 
     # -- snapshot management (MVCC) -----------------------------------------
 
@@ -409,7 +424,8 @@ class DiscoveryEngine:
             entries = [(plan, b) for b in sorted({int(x) for x in bb})
                        for plan in self.planner.plan_set(
                            n_columns=int(bucket), n_queries=b,
-                           mode=self.config.mode, scope="serve")]
+                           mode=self.config.mode, mesh=self.mesh,
+                           grid=self.config.grid, scope="serve")]
             return st.executor.aot_compile(entries, n_columns=int(bucket))
         finally:
             self._release(st)
@@ -471,7 +487,8 @@ class DiscoveryEngine:
             entries = [(plan, b) for b in buckets
                        for plan in self.planner.plan_set(
                            n_columns=st.executor.n_columns, n_queries=b,
-                           mode=self.config.mode, scope=scope)]
+                           mode=self.config.mode, mesh=self.mesh,
+                           grid=self.config.grid, scope=scope)]
             if self.events is not None:
                 self.events.publish(EV.WARMUP_BEGIN, scope=scope,
                                     buckets=list(buckets),
@@ -536,7 +553,8 @@ class DiscoveryEngine:
                 table_ids=snapshot.table_ids, band_keys=lsh.keys,
                 coarse_keys=lsh.coarse, profile_dtype=dt,
                 z_scale=scale, fp32_rows=zv.__getitem__,
-                events=self.events, n_padded=n_pad, device=self.device)
+                events=self.events, n_padded=n_pad, device=self.device,
+                mesh=self.mesh)
             return _VersionState(snapshot=snapshot, z=zv, w=w, lsh=lsh,
                                  executor=executor, mean=mean, std=std,
                                  moments=moments)
@@ -546,7 +564,7 @@ class DiscoveryEngine:
             table_ids=snapshot.table_ids, band_keys=lsh.keys,
             coarse_keys=lsh.coarse,
             profile_dtype=dt, events=self.events, n_padded=n_pad,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         return _VersionState(snapshot=snapshot, z=z, w=w, lsh=lsh,
                              executor=executor, mean=mean, std=std,
                              moments=moments)
@@ -829,7 +847,8 @@ class DiscoveryEngine:
         # which is what lets an in-bucket ingest delta re-dispatch the
         # same compiled executables with zero recompiles
         plan = self.planner.plan(n_columns=st.executor.n_columns,
-                                 n_queries=pad, mode=self.config.mode)
+                                 n_queries=pad, mode=self.config.mode,
+                                 mesh=self.mesh, grid=self.config.grid)
         if marks is not None:
             marks.append(("plan", time.perf_counter()))
         qkeys = (st.lsh.query_keys(sigq) if plan.candidates != "all"
@@ -1026,7 +1045,12 @@ def sigq_width(snapshot: CatalogSnapshot) -> int:
 def measure_recall(engine: DiscoveryEngine, query_ids: np.ndarray,
                    k: int | None = None) -> dict:
     """Recall@k of the engine's (pruned) top-k against the full scan on the
-    same pinned snapshot version, plus the fraction of the lake scored."""
+    same pinned snapshot version, plus the fraction of the lake scored.
+
+    Shard-aware on both sides: the pruned run reports the global number of
+    columns scored (summed over the data shards only), and the exact
+    baseline is the sharded full scan on the same (q_shards, d_shards) grid
+    whenever the engine's plan is sharded."""
     k = k or engine.config.k
     if k > engine.config.k:
         raise ValueError(f"k={k} exceeds the engine's configured "
@@ -1039,10 +1063,14 @@ def measure_recall(engine: DiscoveryEngine, query_ids: np.ndarray,
         zq, wq, sigq, tq, qid = engine._resolve(reqs, st)
         got_s, got_ids, ncand, plan = engine._rank_rows(zq, wq, sigq, tq,
                                                         qid, st)
-        # plan the baseline at the padded size the served plan saw
+        # plan the baseline at the padded size the served plan's grid was
+        # chosen against, so its q_shards stay admissible
         pad = engine._pad_target(len(reqs))
-        base_plan = engine.planner.plan(n_columns=st.executor.n_columns,
-                                        n_queries=pad, mode="full")
+        base_plan = engine.planner.plan(
+            n_columns=st.executor.n_columns, n_queries=pad,
+            mode="sharded" if plan.sharded else "full",
+            mesh=engine.mesh if plan.sharded else None,
+            grid=plan.grid if plan.sharded else None)
         full_s, full_ids, _ = st.executor.execute(base_plan, zq, wq, tq, qid)
         n_columns = st.snapshot.n_columns
     finally:

@@ -7,8 +7,10 @@ plane:
 
 * :class:`EngineReplica` — one :class:`~repro_torch.service.engine.DiscoveryEngine`
   (typically a :class:`~repro_torch.service.catalog.CatalogReader` follower
-  on its own device from
-  :func:`repro_torch.launch.mesh.make_replica_devices`) driven by its own
+  on its own device slice: one device from
+  :func:`repro_torch.launch.mesh.make_replica_devices`, and a mesh from
+  :func:`repro_torch.launch.mesh.make_replica_meshes` when the slice holds
+  two or more) driven by its own
   worker thread, moving through the lifecycle
 
   ::
@@ -54,7 +56,10 @@ it kills (raises) or hangs (blocks) a replica worker at named points —
 production code paths.
 
 **Devices and streams.** Each replica's engine lives on the device
-:func:`~repro_torch.launch.mesh.make_replica_devices` gives it. On one card
+:func:`~repro_torch.launch.mesh.make_replica_devices` gives it (its sharded
+plans on its slice's mesh). Every kernel launch makes its tensors' card the
+thread's current device (``kernels._build.on_device``), so a worker thread
+serves a replica on any card. On one card
 every replica shares the card and its default stream: torch's current
 stream is per thread and starts at the default stream, so the replica
 workers, the submitting threads (which profile uploads) and the rolling
@@ -520,21 +525,24 @@ class EngineFleet:
         ``catalog`` is a :class:`~repro_torch.service.catalog.CatalogStore`
         (or anything with ``.root``) or a root path.  Each replica gets its
         own :class:`~repro_torch.service.catalog.CatalogReader` follower
-        and its own device from
-        :func:`repro_torch.launch.mesh.make_replica_devices` over
-        ``devices`` (default: every visible card; a host without one
-        raises unless the caller passes ``devices=[torch.device("cpu")]``);
+        and its own slice of ``devices`` (default: every visible card; a
+        host without one raises unless the caller passes
+        ``devices=[torch.device("cpu")]``): a slice of two or more devices
+        becomes the replica's mesh
+        (:func:`repro_torch.launch.mesh.make_replica_meshes`), a smaller one
+        its device (:func:`repro_torch.launch.mesh.make_replica_devices`);
         all replicas share one event bus + metrics registry when the config
         enables them.  Engine warmup is deferred into each replica's
         WARMING state so the fleet comes up concurrently, not serially.
         """
-        from repro_torch.launch.mesh import make_replica_devices
+        from repro_torch.launch.mesh import make_replica_devices, make_replica_meshes
         from repro_torch.service.catalog import CatalogReader
         from repro_torch.service.engine import DiscoveryEngine, EngineConfig
 
         root = getattr(catalog, "root", catalog)
         engine_config = engine_config or EngineConfig()
         placed = make_replica_devices(n_replicas, devices=devices)
+        meshes = make_replica_meshes(n_replicas, devices=devices)
         bus = metrics = None
         if engine_config.metrics:
             from repro_torch.service.metrics import ServiceMetrics
@@ -545,7 +553,7 @@ class EngineFleet:
             reader = CatalogReader(root, lazy=lazy, events=bus)
             cfg = dataclasses.replace(engine_config, warmup=False)
             eng = DiscoveryEngine(reader.snapshot(lazy=lazy), model,
-                                  cfg, device=placed[i], events=bus)
+                                  cfg, device=placed[i], mesh=meshes[i], events=bus)
             # restore the warmup policy AFTER construction: the replica
             # worker runs it inside the WARMING state instead of the
             # constructor running it serially here

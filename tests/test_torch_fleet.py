@@ -35,6 +35,7 @@ from repro_torch.core.predictor import train_quality_model
 from repro_torch.kernels import _build
 from repro_torch.launch import discover as port_discover
 from repro_torch.launch.mesh import make_replica_devices
+from repro_torch.launch.mesh import make_replica_meshes as port_replica_meshes
 from repro_torch.service import (ColumnCatalog, DiscoveryRequest, EngineConfig,
                                  EngineFleet, EventBus, FaultInjector,
                                  FleetConfig, FleetRouter, ReplicaSnapshot,
@@ -529,12 +530,38 @@ def test_replica_devices_follow_the_jax_slices(monkeypatch, n_devices):
         else:
             assert got == [cards[i * per] for i in range(n_replicas)]
         meshes = make_replica_meshes(n_replicas, devices=list(range(n_devices)))
-        for dev, mesh in zip(got, meshes):
+        port_meshes = port_replica_meshes(n_replicas, devices=cards)
+        for dev, mesh, port_mesh in zip(got, meshes, port_meshes):
+            assert (mesh is None) == (port_mesh is None)
             if mesh is not None:
                 assert dev == cards[int(mesh.flat[0])]
+                assert port_mesh.devices.shape == mesh.shape
+                assert list(port_mesh.devices.flat) == [cards[int(j)] for j in mesh.flat]
+                assert port_mesh.axis_names == ("data", "model")
     with pytest.raises(ValueError, match="n_replicas"):
         make_replica_devices(0, devices=cards)
     assert make_replica_devices(3, devices=[CPU]) == [CPU] * 3
+
+
+def test_fleet_replicas_shard_over_their_slices(small_lake, fleet_models, tmp_path):
+    """Four host devices, two replicas: each replica serves sharded plans
+    over its two-device slice, with the JAX engine's full-scan answers."""
+    root = str(tmp_path)
+    jadd_lake(JCatalogStore(root, n_perm=128), small_lake)
+    model, jmodel = fleet_models
+    qids = [int(q) for q in lakegen.select_queries(small_lake, 6)]
+    fleet = EngineFleet.from_catalog(root, model, EngineConfig(k=5, mode="sharded",
+                                                               cache_entries=0),
+                                     n_replicas=2, devices=[CPU] * 4)
+    meshes = [r.engine.mesh for r in fleet.replicas]
+    assert [m.shape for m in meshes] == [{"data": 2, "model": 1}] * 2
+    got = _serve_fleet(fleet, [DiscoveryRequest(name=f"q{q}", column_id=q) for q in qids])
+    from repro.service import DiscoveryEngine as JDiscoveryEngine
+    from repro.service import CatalogReader as JCatalogReader
+    want = JDiscoveryEngine(JCatalogReader(root).snapshot(), jmodel,
+                            JEngineConfig(k=5, mode="full", cache_entries=0)).query_batch(
+        [JDiscoveryRequest(name=f"q{q}", column_id=q) for q in qids])
+    assert_same_responses(want, got, 5)
 
 
 def _served_lines(out: str):

@@ -4,12 +4,13 @@ import os
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.discovery import DiscoveryIndex, rank
+from repro_torch.core.discovery import DiscoveryIndex, rank, rank_sharded
 from repro_torch.core.gbdt import GBDTParams
 from repro_torch.core.lakegen import LakeSpec, generate_lake
 from repro_torch.core.predictor import (JoinQualityModel, predict_scores,
@@ -18,6 +19,8 @@ from repro_torch.core.profiles import profile_lake
 from repro_torch.exec.executor import Executor
 from repro_torch.kernels import _build
 from repro_torch.launch import discover
+from repro_torch.launch.mesh import (make_grid_mesh, make_local_mesh, make_replica_devices,
+                                     make_replica_meshes)
 from repro_torch.service.catalog import (CatalogSnapshot, CatalogStore,
                                          profile_and_sign)
 from repro_torch.service.engine import DiscoveryEngine
@@ -58,6 +61,9 @@ _SERVE_MODULES = {"repro_torch.service", "repro_torch.service.api",
 # modules of the replica fleet and the examples' pipeline
 _FLEET_MODULES = {"repro_torch.service.fleet", "repro_torch.launch.mesh",
                   "repro_torch.data", "repro_torch.data.pipeline"}
+# modules of the multi-device plans
+_GRID_MODULES = {"repro_torch.exec.sharded", "repro_torch.launch.mesh",
+                 "repro_torch.core.discovery"}
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 
 
@@ -71,6 +77,14 @@ def test_port_imports_without_jax_or_repro():
     assert _SCALE_MODULES <= names, _SCALE_MODULES - names
     assert _SERVE_MODULES <= names, _SERVE_MODULES - names
     assert _FLEET_MODULES <= names, _FLEET_MODULES - names
+    assert _GRID_MODULES <= names, _GRID_MODULES - names
+
+
+def test_no_sharded_configuration_is_left_unported():
+    """Nothing in the port still names the multi-device slice as to come."""
+    for path in Path(SRC, "repro_torch").rglob("*"):
+        if path.suffix in (".py", ".cu", ".cuh"):
+            assert "queue 7" not in path.read_text(), path
 
 
 _RUN_EXAMPLE = """
@@ -164,6 +178,15 @@ _ENTRY_POINTS = {
     "launch.discover.main --replicas": lambda lake, prof, model: discover.main(
         ["--tables", "3", "--domains", "3", "--model", "unused.npz",
          "--catalog", "unused", "--serve", "--replicas", "2"]),
+    "launch.discover.main --mesh": lambda lake, prof, model: discover.main(
+        ["--tables", "3", "--domains", "3", "--model", "unused.npz",
+         "--catalog", "unused", "--serve", "--mesh", "--mode", "sharded"]),
+    "make_local_mesh": lambda lake, prof, model: make_local_mesh(),
+    "make_grid_mesh": lambda lake, prof, model: make_grid_mesh(1, 1),
+    "make_replica_meshes": lambda lake, prof, model: make_replica_meshes(2),
+    "make_replica_devices": lambda lake, prof, model: make_replica_devices(2),
+    "rank_sharded": lambda lake, prof, model: rank_sharded(
+        DiscoveryIndex(prof, model), [0], make_local_mesh()),
 }
 
 

@@ -3,10 +3,12 @@ catalog read and written by both packages, both engines serving the same
 directory, the index deltas, and the reference service tests restated on
 the port (tests/test_service.py, tests/test_ingest.py:89-116)."""
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.core.sketches as jsketches
 import repro.launch.costmodel as jcostmodel
@@ -29,6 +31,7 @@ from repro_torch.core.gbdt import GBDTConfig
 from repro_torch.core.lakegen import select_queries
 from repro_torch.core.predictor import train_quality_model
 from repro_torch.core.profiles import profile_lake
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.kernels import ref
 from repro_torch.kernels.minhash import make_permutations
 from repro_torch.launch import costmodel
@@ -547,14 +550,44 @@ def test_resigned_catalog_still_serves(small_lake, models, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# what the port does not serve yet raises
+# sharded serving (tests/test_service.py:247)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("cfg", [dict(mode="sharded"), dict(grid=(2, 4)),
-                                 dict(shard_axes=("pod", "data"))])
-def test_sharded_configurations_raise_naming_their_queue(catalog_dir, models, cfg):
-    with pytest.raises(NotImplementedError, match="queue 7"):
-        _engine(catalog_dir, models[0], **cfg)
+@pytest.mark.parametrize("cfg,shape", [
+    (dict(mode="sharded"), dict(data=8, model=1)),
+    (dict(mode="sharded", grid=(2, 4)), dict(data=8, model=1)),
+    (dict(mode="sharded", shard_axes=("pod", "data")), dict(pod=2, data=4, model=1))])
+def test_sharded_engine_matches_jax(catalog_dir, models, small_lake, cfg, shape):
+    """The port's engine over eight host devices (a pinned (2, 4) grid, and a
+    two-axis ("pod", "data") placement among them) against the JAX engine's
+    sharded scan over its one host device: the full scan is the same on
+    every geometry, so responses agree up to exact ties, with equal
+    ``n_candidates``, for resident and uploaded columns."""
+    import jax
+    model, jmodel = models
+    mesh = DeviceMesh(np.full(tuple(shape.values()), torch.device("cpu"), dtype=object),
+                      tuple(shape))
+    jmesh = jax.make_mesh((1,) * len(shape), tuple(shape))
+    jcfg = {k: v for k, v in cfg.items() if k != "grid"}
+    want_eng = JDiscoveryEngine(JCatalogReader(catalog_dir).snapshot(), jmodel,
+                                JEngineConfig(k=10, **jcfg), mesh=jmesh)
+    got_eng = DiscoveryEngine(CatalogReader(catalog_dir).snapshot(), model,
+                              EngineConfig(k=10, **cfg), mesh=mesh)
+    qids = select_queries(small_lake, 10)
+    upload = [f"city_{i % 60}" for i in range(300)]
+
+    def requests(R):
+        return ([R(name=f"q{int(q)}", column_id=int(q)) for q in qids]
+                + [R(name="up", values=upload)])
+
+    assert_same_responses(want_eng.query_batch(requests(JDiscoveryRequest)),
+                          got_eng.query_batch(requests(DiscoveryRequest)), k=10)
+    last = got_eng.stats()["last_plan"]
+    assert last["kind"] == want_eng.stats()["last_plan"]["kind"] == "sharded-all"
+    assert last["grid"][0] * last["grid"][1] == 8
+    if "grid" in cfg:
+        assert tuple(last["grid"]) == cfg["grid"]
+    got_eng.close()
 
 
 def test_executable_cache_dir_is_refused(catalog_dir, models, tmp_path):
@@ -585,10 +618,44 @@ def test_discover_serves_follows_and_reuses_a_catalog(tmp_path, capsys):
     assert JCatalogReader(root).version == 7      # the JAX reader opens it
 
 
-@pytest.mark.parametrize("flags,queue", [(["--replicas", "2", "--grid", "2x4"], "queue 7"),
-                                         (["--grid", "2x4"], "queue 7"),
-                                         (["--mode", "sharded"], "queue 7")])
-def test_discover_refuses_what_is_not_ported(tmp_path, flags, queue):
+def _jax_discover(monkeypatch, argv):
+    """The JAX CLI, which reads ``sys.argv``."""
+    from repro.launch import discover as jdiscover
+    monkeypatch.setattr(sys, "argv", ["discover", *argv])
+    jdiscover.main()
+
+
+def _discover_lines(main, argv, capsys, prefixes):
+    main(argv)
+    return [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith(prefixes)]
+
+
+def test_discover_mesh_grid_matches_jax(tmp_path, capsys, monkeypatch):
+    """``--mesh --grid 1x1 --mode sharded`` on the host's one device: the
+    mesh, the grid and the executed plan as the JAX CLI prints them."""
     from repro_torch.launch import discover
-    with pytest.raises(NotImplementedError, match=queue):
-        discover.main(_SMALL_CLI + ["--catalog", str(tmp_path), "--serve"] + flags)
+    flags = ["--serve", "--mesh", "--grid", "1x1", "--mode", "sharded"]
+    keep = ("mesh:", "grid:", "plan:")
+    want = _discover_lines(lambda a: _jax_discover(monkeypatch, a), _SMALL_CLI[2:] + flags + [
+        "--catalog", str(tmp_path / "j")], capsys, keep)
+    got = _discover_lines(discover.main, _SMALL_CLI + flags + [
+        "--catalog", str(tmp_path / "t")], capsys, keep)
+    assert want[:2] == got[:2] == ["mesh: {'data': 1, 'model': 1} (1 devices)",
+                                   "grid: 1 query shards x 1 data shards"]
+    plan = lambda ln: ln.split(" (~")[0]          # kind, budget, grid
+    assert plan(got[2]) == plan(want[2])
+    assert plan(got[2]).startswith("plan: sharded-all") and "grid=1x1" in got[2]
+
+
+@pytest.mark.parametrize("flags", [["--grid", "2x4"], ["--grid", "2by4", "--mesh"],
+                                   ["--mode", "sharded"]])
+def test_discover_sharded_errors_match_jax(tmp_path, flags, monkeypatch):
+    """``--grid`` without ``--mesh``, a malformed grid, and ``--mode
+    sharded`` without a mesh fail as the JAX CLI fails, with its message."""
+    from repro_torch.launch import discover
+    argv = ["--serve", "--catalog", str(tmp_path / "c")] + flags
+    with pytest.raises((SystemExit, ValueError)) as want:
+        _jax_discover(monkeypatch, _SMALL_CLI[2:] + argv)
+    with pytest.raises(want.type) as got:
+        discover.main(_SMALL_CLI + argv)
+    assert str(got.value) == str(want.value)

@@ -235,13 +235,28 @@ def test_planner_ladders_match_jax():
     assert Planner(PlannerConfig()).next_column_bucket(5) is None
 
 
-@pytest.mark.parametrize("kw", [dict(mode="sharded"), dict(mesh=object()),
-                                dict(grid=(2, 1))])
-def test_sharded_plans_raise_naming_their_queue(kw):
+class _FakeMesh:
+    """The planner reads only ``mesh.shape``."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+
+
+@pytest.mark.parametrize("kw", [dict(mode="sharded", mesh=_FakeMesh(data=2, model=1)),
+                                dict(mesh=_FakeMesh(data=4, model=1)),
+                                dict(mesh=_FakeMesh(data=2, model=1), grid=(2, 1))])
+def test_sharded_plans_and_plan_sets_match_jax(kw):
+    """``mode="sharded"``, ``lsh`` over a mesh and a pinned (2, 1) grid: the
+    plan and both warmup plan sets, field by field, as the JAX planner's."""
     args = dict(n_columns=100, n_queries=4, mode="lsh")
     args.update(kw)
-    with pytest.raises(NotImplementedError, match="queue 7"):
-        Planner().plan(**args)
+    ident = lambda p: (p.kind, p.candidates, p.sharded, p.budget, p.k, p.grid,
+                       p.n_shards, p.shard_axes, p.survivor_budget, p.budget_per_shard)
+    want, got = jexec.Planner().plan(**args), Planner().plan(**args)
+    assert ident(got) == ident(want) and got.sharded
+    for scope in ("serve", "full"):
+        assert ([ident(p) for p in Planner().plan_set(scope=scope, **args)]
+                == [ident(p) for p in jexec.Planner().plan_set(scope=scope, **args)])
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ Phases:
    and the three kernels that stage an ensemble in a constant bank
    (``fused_score``, ``fused_score_q``, ``gbdt_infer``) under two host
    threads calling them with two different ensembles;
-3. six paths at real size, through the port's own entry points, each
+3. seven paths at real size, through the port's own entry points, each
    with the launch counts set to 0 just before it and read just after it:
    a. the discovery query: train the join-quality model (T=50, D=5) on the
       default lake, ingest a 100k-column x 256-row scaled lake (profiles +
@@ -68,6 +68,24 @@ Phases:
       executor. On one card a grid adds no device throughput: its
       queries/s beside the local plan's show what tiling and the merge
       cost.
+   g. the language-model serving path, which launches none of the eight
+      FREYJA kernels (the run fails if one launches): (a) smollm-360m as
+      configured (32 layers, d_model 960, bf16) through
+      ``launch.serve.main`` with its defaults (batch 4, prompt 64, 32 new
+      tokens), then the same generation timed: prefill ms, decode ms a
+      step (CUDA events, the mean of the steady steps), tokens/s,
+      ``max_memory_allocated``, and one profiled decode step; (b) the same
+      weights in float32 (TF32 off): 16 decode steps after a 64-token
+      prefill against the teacher-forced forward pass (rtol 2e-2, atol
+      2e-4, tests/test_models.py:80), and the bf16 decode logits against
+      the float32 forward (max |diff| / max |logit| < 0.05,
+      tests/test_serve.py:40); (c) every other family at its published
+      width, cut in depth only (``LM_FAMILIES``; Mixtral's 4,608-token
+      prompt wraps its 4,096-slot ring; the MoEs at capacity factor 8, so
+      no token drops), float32, 8 decode steps against the forward pass at
+      (b)'s tolerance; (d) a 2-layer smollm-360m drawn on the host, copied
+      to the card: forward and decode logits equal the host's (rtol 1e-4,
+      atol 1e-5).
    Each plan's ids are held against a plain pipeline over the same
    candidates (plain probes and plain scorers); the quantized top-10 must
    overlap the float32 one by at least 0.99. The model path's distances
@@ -89,6 +107,7 @@ failure raises and exits non-zero. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import shutil
@@ -131,8 +150,13 @@ from repro_torch.kernels.minhash import (make_permutations,       # noqa: E402
 from repro_torch.kernels.profile_distance import (                # noqa: E402
     fused_score_cuda, fused_score_q_cuda, profile_distance_cuda, quantize_profiles)
 from repro_torch.kernels.quality_cdf import quality_cdf_cuda      # noqa: E402
+from repro_torch.launch import serve as launch_serve              # noqa: E402
 from repro_torch.launch.bench_scorer import launch_floor          # noqa: E402
 from repro_torch.launch.mesh import make_grid_mesh                # noqa: E402
+from repro_torch.models import encdec as lm_encdec                # noqa: E402
+from repro_torch.models import registry as lm_registry            # noqa: E402
+from repro_torch.models import transformer as lm_transformer      # noqa: E402
+from repro_torch.serve.engine import generate                     # noqa: E402
 from repro_torch.service import catalog                           # noqa: E402
 from repro_torch.service.catalog import CatalogSnapshot           # noqa: E402
 from repro_torch.service import (CatalogReader, CatalogStore,     # noqa: E402
@@ -196,6 +220,26 @@ N_REPLICAS, ROLL_LAKE = 2, ScaledLakeSpec(n_columns=1024, seed=7)
 PLAIN_ROWS = 64         # query rows per plain-pipeline chunk
 # the sharded path: grids over N_GRID_DEVICES copies of the card
 GRIDS, N_GRID_DEVICES = ((1, 4), (2, 2), (4, 1)), 4
+# the language-model path: launch/serve's defaults (batch, prompt, new
+# tokens) at smollm-360m's full width and depth; decode against the forward
+# pass at tests/test_models.py:80's tolerance, the bf16 run against float32
+# at tests/test_serve.py:40's bound, the card against the host at
+# tests/test_kernels.py's
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW, LM_CHECK_NEW = "smollm-360m", 4, 64, 32, 16
+DECODE_RTOL, DECODE_ATOL, BF16_REL = 2e-2, 2e-4, 0.05
+LM_STEADY_FROM = 3      # decode steps before this one are warm-up
+# every other family at its published width, cut in depth only: layers (None:
+# as configured), batch, prompt tokens; 8 decode steps each
+LM_FAMILIES = {
+    "qwen3-4b": (2, 2, 64), "qwen1.5-32b": (2, 2, 64), "stablelm-3b": (2, 2, 64),
+    "mixtral-8x22b": (2, 1, 4608),      # past its 4,096-token window: the ring wraps
+    "phi3.5-moe-42b-a6.6b": (2, 2, 64),
+    "zamba2-2.7b": (6, 2, 64),          # one attn_every period
+    "rwkv6-3b": (2, 2, 64),
+    "phi-3-vision-4.2b": (2, 2, 1024),  # 576 image-stub positions first
+    "whisper-base": (None, 2, 1024),    # 6 + 6 layers; 1,024 encoder frames
+}
+LM_FAMILY_NEW = 8
 # the caching allocator hands out a cached block whole when splitting it
 # would leave under 1 MiB, so a freed tensor may release up to that much
 # more than its size rounded to 512 bytes
@@ -1941,6 +1985,246 @@ def trace_plans(run) -> None:
         f"{busy['tiered_int8']:.3f} ms ({busy['tiered_int8'] - before:+.3f} ms)")
 
 
+# ---------------------------------------------------------------------------
+# phase 3g: the language-model serving path (no FREYJA kernel on it)
+# ---------------------------------------------------------------------------
+
+def _lm_tokens(cfg, b: int, s: int, seed: int, dev) -> torch.Tensor:
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.integers(1, cfg.vocab, (b, s))).long().to(dev)
+
+
+def _chunk_padded(cfg, toks) -> torch.Tensor:
+    """Pad tokens to a multiple of the attention chunk, as
+    tests/test_models.py:72 pads them (causal: the first positions stay as
+    they are)."""
+    n, c = toks.shape[1], cfg.attn_chunk
+    return torch.nn.functional.pad(toks, (0, -(-n // c) * c - n))
+
+
+def _fits(name: str, got, want, rtol=DECODE_RTOL, atol=DECODE_ATOL) -> float:
+    """The worst |got - want| / (atol + rtol |want|); raises above 1."""
+    got, want = got.float().cpu(), want.float().cpu()
+    ratio = float(((got - want).abs() / (atol + rtol * want.abs())).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name}: |got - want| reaches {ratio:.3f}x of atol {atol} + "
+                             f"rtol {rtol} (max |diff| {float((got - want).abs().max()):.3e})")
+    return ratio
+
+
+@torch.no_grad()
+def decode_against_forward(params, cfg, toks, n_prompt: int, *, img=None, frames=None):
+    """Prefill ``toks[:, :n_prompt]`` (an enc-dec: encode ``frames`` and
+    project the cross K/V), decode the remaining tokens one at a time
+    through the cache, and return each step's logits beside the
+    teacher-forced forward pass over the same tokens (``_chunk_padded``)."""
+    b, n = toks.shape
+    batch = {"tokens": _chunk_padded(cfg, toks)}
+    if img is not None:
+        batch["img"] = img
+    if frames is not None:
+        batch["frames"] = frames
+    want = lm_registry.forward(params, cfg, batch)[:, n_prompt:n]
+    if lm_registry.is_encdec(cfg):
+        caches = lm_encdec.init_decode_caches(cfg, b, n, frames.shape[1], toks.device)
+        caches["cross"] = lm_encdec.precompute_cross_kv(
+            params, cfg, lm_encdec.encode(params, cfg, frames))
+    else:
+        _, caches = lm_transformer.forward_with_caches(params, cfg, toks[:, :n_prompt], n,
+                                                       img=img)
+    steps = []
+    for i in range(n_prompt, n):
+        logits, caches = lm_registry.decode_step(params, cfg, {"tokens": toks[:, i:i + 1]},
+                                                 caches)
+        steps.append(logits[:, 0])
+    return torch.stack(steps, 1), want
+
+
+def _trace_decode_step(params, cfg, tok, caches, steady_ms: float, smi: str) -> dict:
+    """Device kernels, busy time and idle share of one decode step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lm_registry.decode_step(params, cfg, {"tokens": tok}, caches)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    kernels = sum(e.count for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"trace lm decode step ({smi}): {kernels} device kernels, device busy {busy:.3f} ms "
+        f"of a {steady_ms:.3f} ms steady step (idle share {max(0.0, 1 - busy / steady_ms):.1%});"
+        " by self device time: " + "; ".join(
+            f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+    return {"kernels": kernels, "busy_ms": busy}
+
+
+def lm_serve(dev, smi: str) -> dict:
+    """3g a): smollm-360m as configured (bf16), launch/serve's defaults:
+    ``launch.serve`` itself, then the same generation timed phase by phase."""
+    cfg = lm_registry.get_config(LM_ARCH)
+    log(f"3g a) {LM_ARCH} as configured: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv} KV heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.param_dtype}; batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"{LM_NEW} new tokens")
+    t0 = time.perf_counter()
+    launch_serve.main(["--device", str(dev), "--batch", str(LM_BATCH), "--prompt-len",
+                       str(LM_PROMPT), "--max-new", str(LM_NEW)])
+    serve_s = sync_wall(t0)
+    # launch/serve's weights and prompts
+    params = lm_registry.init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                                     device=dev)
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(LM_BATCH, LM_PROMPT)).astype(np.int32)
+    toks = torch.from_numpy(prompts).long().to(dev)
+    size = LM_PROMPT + LM_NEW
+    t0 = time.perf_counter()
+    first = generate(params, cfg, prompts, max_new=LM_NEW, cache_size=size, device=dev)
+    generate_s = time.perf_counter() - t0          # generate returns host tokens: synced
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()           # the weights, and earlier paths' state
+    t0 = time.perf_counter()
+    logits, caches = lm_transformer.forward_with_caches(params, cfg, toks, size)
+    prefill_ms = sync_wall(t0) * 1e3
+    t1 = time.perf_counter()
+    tok = logits[:, -1:].argmax(-1)
+    gen, step_logits = [tok], []
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+    for _ in range(LM_NEW - 1):
+        lg, caches = lm_registry.decode_step(params, cfg, {"tokens": tok}, caches)
+        tok = lg[:, -1].argmax(-1)[:, None]
+        step_logits.append(lg[:, 0])
+        gen.append(tok)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+    decode_s = sync_wall(t1)
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    steady = float(np.mean(step_ms[LM_STEADY_FROM:]))
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.cat(gen, 1)
+    tok_s = LM_BATCH * LM_NEW / (prefill_ms / 1e3 + decode_s)
+    same = float((gen.cpu().numpy() == first).mean())
+    trace = _trace_decode_step(params, cfg, tok, caches, steady, smi)
+    log(f"3g a) ({smi}) weights {weight_bytes / 1e9:.3f} GB; launch/serve main {serve_s:.2f} s "
+        f"(first call, weights drawn); generate {generate_s:.3f} s; prefill {prefill_ms:.3f} ms; "
+        f"decode {steady:.3f} ms a step (mean of steps {LM_STEADY_FROM + 1}-{LM_NEW - 1}; "
+        f"all steps {min(step_ms):.3f}-{max(step_ms):.3f} ms; host wall "
+        f"{decode_s * 1e3 / (LM_NEW - 1):.3f} ms a step); {tok_s:.1f} tokens/s (prefill + "
+        f"{LM_NEW - 1} steps, {LM_BATCH} sequences); {LM_BATCH / steady * 1e3:.1f} tokens/s "
+        f"decoding; max_memory_allocated {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB "
+        f"above the {held / 2**20:.1f} MiB held before the prefill); generate's tokens equal this "
+        f"loop's at {same:.3f} of positions")
+    return dict(cfg=cfg, params=params, prompts=toks, gen=gen, step_logits=step_logits,
+                prefill_ms=prefill_ms, steady_ms=steady, step_ms=step_ms, tok_s=tok_s,
+                peak=peak, held=held, generate_s=generate_s, trace=trace,
+                weight_bytes=weight_bytes)
+
+
+def lm_path(dev, smi: str) -> dict:
+    """Phase 3g: a) smollm-360m served at full width and depth in bf16;
+    b) the same weights in float32: decode against the forward pass, and the
+    bf16 decode against the float32 forward; c) every other family at its
+    published width, cut in depth only; d) host weights on the card against
+    the host."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("3g compares float32 logits: TF32 matmuls must be off")
+    out = {"serve": lm_serve(dev, smi)}
+    a = out["serve"]
+
+    # b) the same weights in float32
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(a["cfg"], param_dtype="float32", compute_dtype="float32")
+    p32 = a.pop("params").float()                  # in place: the bf16 copy goes
+    seq = torch.cat([a["prompts"], a["gen"][:, :LM_CHECK_NEW]], 1)
+    dec, want = decode_against_forward(p32, cfg32, seq, LM_PROMPT)
+    ratio = _fits("3g b) float32 decode vs forward", dec, want)
+    with torch.no_grad():
+        traj = torch.cat([a["prompts"], a["gen"][:, :-1]], 1)
+        full = lm_registry.forward(p32, cfg32, {"tokens": _chunk_padded(cfg32, traj)})
+        full = full[:, LM_PROMPT:traj.shape[1]]
+    bf16 = torch.stack(a.pop("step_logits"), 1).float()
+    rel = float((bf16 - full).abs().max() / full.abs().max())
+    if not rel < BF16_REL:
+        raise AssertionError(f"3g b) bf16 decode vs float32 forward: {rel:.4f} >= {BF16_REL}")
+    log(f"3g b) ({smi}) float32, {cfg32.n_layers} layers: {LM_CHECK_NEW} decode steps after a "
+        f"{LM_PROMPT}-token prefill against the teacher-forced forward: worst "
+        f"{ratio:.3f} of (atol {DECODE_ATOL} + rtol {DECODE_RTOL}), max |diff| "
+        f"{float((dec - want).abs().max()):.3e}; bf16 decode vs float32 forward "
+        f"max|diff|/max|logit| {rel:.4f} (< {BF16_REL}) ({sync_wall(t0):.2f} s)")
+    out["fp32"] = {"ratio": ratio, "bf16_rel": rel}
+    del p32, dec, want, full, bf16
+
+    # c) every other family at its published width, cut in depth only
+    out["families"] = {}
+    for arch, (layers, b, prompt) in LM_FAMILIES.items():
+        t0 = time.perf_counter()
+        base = lm_registry.get_config(arch)
+        upd = dict(param_dtype="float32", compute_dtype="float32")
+        if layers is not None:
+            upd["n_layers"] = layers
+        if base.family == "moe":
+            # no token drops: prefill and the forward pass route different
+            # token counts, so capacity dropping would make them incomparable
+            upd["capacity_factor"] = 8.0
+        cfg = dataclasses.replace(base, **upd)
+        gen = torch.Generator(dev).manual_seed(0)
+        params = lm_registry.init_params(cfg, generator=gen, device=dev)
+        n_params = sum(p.numel() for p in params.parameters())
+        img = frames = None
+        if cfg.family == "encdec":
+            toks = _lm_tokens(cfg, b, LM_FAMILY_NEW, 3, dev)
+            frames = torch.randn((b, prompt, cfg.d_model), generator=gen, device=dev) * 0.02
+            n_prompt = 0
+            cut = (f"{cfg.enc_layers} + {cfg.dec_layers} layers as configured; "
+                   f"{prompt} encoder frames")
+        else:
+            toks = _lm_tokens(cfg, b, prompt + LM_FAMILY_NEW, 3, dev)
+            if cfg.family == "vlm":
+                img = torch.randn((b, cfg.n_patches, cfg.d_model), generator=gen,
+                                  device=dev) * 0.02
+            n_prompt = prompt
+            cut = f"{base.n_layers} -> {cfg.n_layers} layers; prompt {prompt}"
+        dec, want = decode_against_forward(params, cfg, toks, n_prompt, img=img, frames=frames)
+        ratio = _fits(f"3g c) {arch}", dec, want)
+        wall = sync_wall(t0)
+        log(f"3g c) {arch} ({cut}, batch {b}, float32, {n_params / 1e6:.1f}M params"
+            + (", capacity_factor 8" if base.family == "moe" else "") + f"): "
+            f"{LM_FAMILY_NEW} decode steps against the forward pass: worst {ratio:.3f} of "
+            f"(atol {DECODE_ATOL} + rtol {DECODE_RTOL}), max |diff| "
+            f"{float((dec - want).abs().max()):.3e} ({wall:.2f} s, {smi})")
+        out["families"][arch] = {"ratio": ratio, "wall": wall}
+        del params, dec, want, img, frames
+        torch.cuda.empty_cache()
+
+    # d) the card against the host
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(lm_registry.get_config(LM_ARCH), n_layers=2,
+                               param_dtype="float32", compute_dtype="float32")
+    host = lm_registry.init_params(cfg2, generator=torch.Generator().manual_seed(0),
+                                   device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    toks = _lm_tokens(cfg2, LM_BATCH, LM_PROMPT, 5, "cpu")
+    with torch.no_grad():
+        want = lm_registry.forward(host, cfg2, {"tokens": toks})
+        got = lm_registry.forward(card, cfg2, {"tokens": toks.to(dev)})
+    ratio = _fits("3g d) card vs host forward", got, want, rtol=RTOL, atol=ATOL)
+    half = LM_PROMPT // 2
+    _, hc = lm_transformer.forward_with_caches(host, cfg2, toks[:, :half], LM_PROMPT)
+    _, cc = lm_transformer.forward_with_caches(card, cfg2, toks[:, :half].to(dev), LM_PROMPT)
+    for i in range(half, half + 4):
+        hl, hc = lm_registry.decode_step(host, cfg2, {"tokens": toks[:, i:i + 1]}, hc)
+        cl, cc = lm_registry.decode_step(card, cfg2, {"tokens": toks[:, i:i + 1].to(dev)}, cc)
+        ratio = max(ratio, _fits(f"3g d) card vs host decode step {i}", cl, hl, rtol=RTOL,
+                                 atol=ATOL))
+    log(f"3g d) ({smi}) {LM_ARCH} at full width, 2 layers, float32, drawn on the host: card "
+        f"against host, forward and 4 decode steps, worst {ratio:.3f} of (atol {ATOL} + "
+        f"rtol {RTOL}) ({sync_wall(t0):.2f} s)")
+    out["host"] = {"ratio": ratio}
+    return out
+
+
 def counted(path: str, required, drive):
     """Drive one path of phase 3 with every launch count set to 0 just
     before it, read the counts just after, and fail if a kernel of the path
@@ -2035,6 +2319,20 @@ def main() -> int:
     log(f"sharded summary ({smi}): queries/s by grid beside the local plan "
         f"{sharded_check['qps']}; launches {sharded_counts}, fused_score by geometry "
         f"{sharded_geometry}")
+
+    # phase 3g: the language-model serving path, which has no FREYJA kernel
+    lm, lm_counts = counted("lm", (), lambda: lm_path(dev, smi))
+    if any(lm_counts.values()):
+        raise AssertionError(f"the lm path launched FREYJA kernels: {lm_counts}")
+    a = lm["serve"]
+    log(f"lm summary ({smi}): {LM_ARCH} bf16, batch {LM_BATCH}: prefill {a['prefill_ms']:.3f} "
+        f"ms, decode {a['steady_ms']:.3f} ms a step, {a['tok_s']:.1f} tokens/s, "
+        f"max_memory_allocated {a['peak'] / 2**20:.1f} MiB ({(a['peak'] - a['held']) / 2**20:.1f} "
+        f"MiB above what was held), {a['trace']['kernels']} kernels a "
+        f"decode step; decode vs forward (float32) within {lm['fp32']['ratio']:.3f} of the "
+        f"tolerance, bf16 vs float32 {lm['fp32']['bf16_rel']:.4f}; families "
+        + ", ".join(f"{k} {v['ratio']:.3f}" for k, v in lm["families"].items())
+        + f"; card vs host {lm['host']['ratio']:.3f}; launches {lm_counts}")
 
     # phase 4: kernels at the main path's shapes
     t0 = time.perf_counter()

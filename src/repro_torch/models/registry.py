@@ -1,0 +1,115 @@
+"""Architecture registry: ``--arch <id>`` -> config + model functions.
+
+The port of ``repro.models.registry``. ``input_specs`` (the dry run's
+shape stand-ins) comes with the port's dry run, in a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import encdec, transformer
+from repro_torch.models.config import ArchConfig
+
+ARCHS: dict[str, str] = {
+    "smollm-360m": "smollm_360m",
+    "stablelm-3b": "stablelm_3b",
+    "qwen3-4b": "qwen3_4b",
+    "qwen1.5-32b": "qwen15_32b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "zamba2-2.7b": "zamba2_27b",
+    "whisper-base": "whisper_base",
+    "phi-3-vision-4.2b": "phi3_vision",
+    "rwkv6-3b": "rwkv6_3b",
+}
+
+SHAPES: dict[str, dict[str, int]] = {
+    "train_4k":    {"seq": 4096,    "batch": 256, "kind": "train"},
+    "prefill_32k": {"seq": 32768,   "batch": 32,  "kind": "prefill"},
+    "decode_32k":  {"seq": 32768,   "batch": 128, "kind": "decode"},
+    "long_500k":   {"seq": 524288,  "batch": 1,   "kind": "decode"},
+}
+
+
+def get_config(arch: str) -> ArchConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
+    return mod.CONFIG
+
+
+def list_archs() -> list[str]:
+    return list(ARCHS)
+
+
+def cell_supported(cfg: ArchConfig, shape: str) -> tuple[bool, str]:
+    """Is (arch × shape) a runnable cell? (False, reason) if skipped."""
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False, "long_500k needs sub-quadratic attention (full-attn arch)"
+    return True, ""
+
+
+def is_encdec(cfg: ArchConfig) -> bool:
+    return cfg.family == "encdec"
+
+
+def init_params(cfg: ArchConfig, *, generator: torch.Generator | None = None, device=None):
+    """The model's parameters as an ``nn.Module`` on ``device`` (default:
+    the card), drawn from ``generator`` (default: a generator on that device
+    seeded with 0). The draws run on the generator's device, so a host
+    generator builds host-seeded weights on any device."""
+    dev = resolve_device(device)
+    gen = generator if generator is not None else torch.Generator(dev).manual_seed(0)
+    if is_encdec(cfg):
+        return encdec.init_encdec(cfg, gen, dev)
+    return transformer.init_lm(cfg, gen, dev)
+
+
+def forward(params, cfg: ArchConfig, batch: dict):
+    if is_encdec(cfg):
+        return encdec.forward(params, cfg, batch["tokens"], batch["frames"])
+    return transformer.forward(params, cfg, batch["tokens"], img=batch.get("img"))
+
+
+def decode_step(params, cfg: ArchConfig, batch: dict, caches):
+    if is_encdec(cfg):
+        return encdec.decode_step(params, cfg, batch["tokens"], caches)
+    return transformer.decode_step(params, cfg, batch["tokens"], caches)
+
+
+def init_caches(cfg: ArchConfig, batch: int, seq: int, *, device=None):
+    dev = resolve_device(device)
+    if is_encdec(cfg):
+        return encdec.init_decode_caches(cfg, batch, seq, enc_len=seq, device=dev)
+    return transformer.init_caches(cfg, batch, seq, dev)
+
+
+def reduced_config(cfg: ArchConfig) -> ArchConfig:
+    """Tiny same-family config for CPU smoke tests."""
+    updates = dict(
+        n_layers=max(2, min(4, cfg.n_layers)),
+        d_model=128, n_heads=4, n_kv=max(1, min(4, cfg.n_kv)),
+        d_head=32, d_ff=256, vocab=512,
+        param_dtype="float32", compute_dtype="float32",
+        attn_chunk=64, ssm_chunk=32, rwkv_chunk=16,
+        sliding_window=None if cfg.sliding_window is None else 64,
+        n_patches=8, ssm_headdim=32, ssm_expand=2, ssm_state=16,
+        rwkv_headdim=32, remat="none",
+    )
+    if cfg.family == "moe":
+        updates["n_experts"] = 4
+        updates["moe_sharding"] = cfg.moe_sharding
+    if cfg.family == "hybrid":
+        updates["n_layers"] = 4
+        updates["attn_every"] = 2
+        updates["n_kv"] = 4
+    if cfg.family == "encdec":
+        updates["enc_layers"] = 2
+        updates["dec_layers"] = 2
+        updates["n_layers"] = 2
+    if cfg.family == "ssm":
+        updates["n_heads"] = 4
+        updates["n_kv"] = 4
+    return dataclasses.replace(cfg, **updates)

@@ -19,8 +19,11 @@ from repro_torch.core.profiles import profile_lake
 from repro_torch.exec.executor import Executor
 from repro_torch.kernels import _build
 from repro_torch.launch import discover
+from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.mesh import (make_grid_mesh, make_local_mesh, make_replica_devices,
                                      make_replica_meshes)
+from repro_torch.models import registry as lm_registry
+from repro_torch.serve.engine import generate
 from repro_torch.service.catalog import (CatalogSnapshot, CatalogStore,
                                          profile_and_sign)
 from repro_torch.service.engine import DiscoveryEngine
@@ -64,6 +67,13 @@ _FLEET_MODULES = {"repro_torch.service.fleet", "repro_torch.launch.mesh",
 # modules of the multi-device plans
 _GRID_MODULES = {"repro_torch.exec.sharded", "repro_torch.launch.mesh",
                  "repro_torch.core.discovery"}
+# modules of the language-model serving path
+_LM_MODULES = {f"repro_torch.models.{m}" for m in (
+    "config", "layers", "attention", "moe", "rwkv", "ssm", "transformer", "encdec",
+    "registry")} | {f"repro_torch.configs.{m}" for m in (
+        "smollm_360m", "stablelm_3b", "qwen3_4b", "qwen15_32b", "mixtral_8x22b", "phi35_moe",
+        "zamba2_27b", "whisper_base", "phi3_vision", "rwkv6_3b", "freyja_discovery")} | {
+    "repro_torch.serve", "repro_torch.serve.engine", "repro_torch.launch.serve"}
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 
 
@@ -78,6 +88,7 @@ def test_port_imports_without_jax_or_repro():
     assert _SERVE_MODULES <= names, _SERVE_MODULES - names
     assert _FLEET_MODULES <= names, _FLEET_MODULES - names
     assert _GRID_MODULES <= names, _GRID_MODULES - names
+    assert _LM_MODULES <= names, _LM_MODULES - names
 
 
 def test_no_sharded_configuration_is_left_unported():
@@ -187,7 +198,18 @@ _ENTRY_POINTS = {
     "make_replica_devices": lambda lake, prof, model: make_replica_devices(2),
     "rank_sharded": lambda lake, prof, model: rank_sharded(
         DiscoveryIndex(prof, model), [0], make_local_mesh()),
+    "models.registry.init_params": lambda lake, prof, model: lm_registry.init_params(
+        _LM_CFG),
+    "models.registry.init_caches": lambda lake, prof, model: lm_registry.init_caches(
+        _LM_CFG, 1, 8),
+    "serve.engine.generate": lambda lake, prof, model: generate(
+        lm_registry.init_params(_LM_CFG, device="cpu"), _LM_CFG,
+        np.ones((1, 4), np.int32), max_new=2),
+    "launch.serve.main": lambda lake, prof, model: launch_serve.main(
+        ["--reduce", "--batch", "1", "--prompt-len", "4", "--max-new", "2"]),
 }
+
+_LM_CFG = lm_registry.reduced_config(lm_registry.get_config("smollm-360m"))
 
 
 def _empty_snapshot() -> CatalogSnapshot:

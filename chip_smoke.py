@@ -12,7 +12,7 @@ Phases:
    and the three kernels that stage an ensemble in a constant bank
    (``fused_score``, ``fused_score_q``, ``gbdt_infer``) under two host
    threads calling them with two different ensembles;
-3. seven paths at real size, through the port's own entry points, each
+3. eight paths at real size, through the port's own entry points, each
    with the launch counts set to 0 just before it and read just after it:
    a. the discovery query: train the join-quality model (T=50, D=5) on the
       default lake, ingest a 100k-column x 256-row scaled lake (profiles +
@@ -86,6 +86,25 @@ Phases:
       (b)'s tolerance; (d) a 2-layer smollm-360m drawn on the host, copied
       to the card: forward and decode logits equal the host's (rtol 1e-4,
       atol 1e-5).
+   h. the language-model training path, which launches none of the FREYJA
+      kernels either (the run fails if one launches): (a) smollm-360m as
+      configured (bf16 weights, float32 moments, block remat) through
+      ``launch.train.main`` with its defaults (batch 8, seq 256, ``--mesh
+      none``), 20 steps with a checkpoint every 10, then ``--steps 22`` on
+      the same directory, which must resume at step 20 and end at step 22;
+      then the steady step timed by CUDA events (mean after 3 warm-up
+      steps), tokens/s, model TFLOP/s (6·N·tokens a step) against the H100
+      SXM's dense bf16 peak, ``max_memory_allocated`` and one profiled
+      step; (b) a 2-layer float32 smollm-360m drawn on the host, copied to
+      the card: gradients, then 3 train steps on both (loss, grad norm,
+      moments, parameters), ``accum=2`` against ``accum=1`` on the card
+      (tests/test_train.py:86's rule), and a checkpoint written on the card
+      restored on the host bit for bit; (c) every other family at its
+      published width cut in depth (``LM_FAMILIES``; Mixtral at 1 layer,
+      ``TRAIN_LAYERS``), batch 2, one step as configured: its loss equals
+      the cross-entropy of a no-grad forward pass over the same weights,
+      its grad norm is finite and positive; (d) ``examples/
+      torch_train_lm.py`` at its defaults (200 steps): its loss falls.
    Each plan's ids are held against a plain pipeline over the same
    candidates (plain probes and plain scorers); the quantized top-10 must
    overlap the float32 one by at least 0.99. The model path's distances
@@ -109,7 +128,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
+import runpy
 import shutil
 import subprocess
 import sys
@@ -150,7 +171,10 @@ from repro_torch.kernels.minhash import (make_permutations,       # noqa: E402
 from repro_torch.kernels.profile_distance import (                # noqa: E402
     fused_score_cuda, fused_score_q_cuda, profile_distance_cuda, quantize_profiles)
 from repro_torch.kernels.quality_cdf import quality_cdf_cuda      # noqa: E402
+from repro_torch.ckpt.manager import CheckpointManager           # noqa: E402
+from repro_torch.data.pipeline import TokenPipeline               # noqa: E402
 from repro_torch.launch import serve as launch_serve              # noqa: E402
+from repro_torch.launch import train as launch_train              # noqa: E402
 from repro_torch.launch.bench_scorer import launch_floor          # noqa: E402
 from repro_torch.launch.mesh import make_grid_mesh                # noqa: E402
 from repro_torch.models import encdec as lm_encdec                # noqa: E402
@@ -164,6 +188,9 @@ from repro_torch.service import (CatalogReader, CatalogStore,     # noqa: E402
                                  EngineFleet, FaultInjector, RequestScheduler)
 from repro_torch.service.fleet import EVICTED, SERVING, WARMING   # noqa: E402
 from repro_torch.service.lsh import LSHConfig, LSHIndex           # noqa: E402
+from repro_torch.train.loop import batch_to_device                # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig, init_opt_state  # noqa: E402
+from repro_torch.train.trainer import build_train_step, cross_entropy, loss_fn  # noqa: E402
 
 # the main path's geometry
 N_COLUMNS, N_ROWS, N_PERM, N_BANDS, N_QUERIES, K = 100_000, 256, 128, 64, 64, 10
@@ -240,6 +267,34 @@ LM_FAMILIES = {
     "whisper-base": (None, 2, 1024),    # 6 + 6 layers; 1,024 encoder frames
 }
 LM_FAMILY_NEW = 8
+# the language-model training path: launch/train's defaults (batch 8, seq
+# 256, lr 3e-4) at smollm-360m's full width and depth; a resume from the
+# step-20 checkpoint; the steady step timed after TRAIN_WARM warm-up steps
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_RESUME_TO = 20, 10, 22
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED, TRAIN_WARM = 8, 256, 10, 3
+# NVIDIA's data sheet, H100 SXM, dense bf16 tensor-core peak (700 W)
+H100_BF16_TFLOPS = 989.0
+# the card against the host: 3 float32 steps of a 2-layer model at batch 4,
+# seq 64, the learning rate warming up over them (tests/test_torch_ckpt.py)
+TRAIN_CHECK_STEPS, TRAIN_CHECK_B, TRAIN_CHECK_S = 3, 4, 64
+TRAIN_CHECK_OPT = AdamWConfig(lr=1e-3, warmup_steps=5)
+# the step's metrics, card against host: the loss a float32 sum, the norm
+# a function of the gradients and held at their rtol (at full width the
+# card's differed from the host's by 2.4e-5 on an H100 80GB HBM3), the
+# learning rate from the step
+TRAIN_CHECK_RTOL = {"loss": 1e-5, "grad_norm": RTOL, "lr": 1e-6}
+# the families' train step: LM_FAMILIES' depth cuts at batch 2, except
+# Mixtral-8x22B at 1 layer: at 2 layers its float32 training state (weights,
+# gradients, two moments; 16 B a parameter) is 80.6 GiB, more than the
+# card's 80 GB; at 1 layer in bf16 with float32 moments its step peaked at
+# 58.9 GiB on an H100 80GB HBM3
+TRAIN_FAMILY_BATCH, TRAIN_LAYERS = 2, {"mixtral-8x22b": 1}
+# whisper-base's decoder tokens (its published maximum target length)
+TRAIN_WHISPER_TOKENS = 448
+# the step's loss against a no-grad forward over the same weights in bf16:
+# the same kernels, except the MoEs' index_add_, whose atomics may sum in
+# another order
+TRAIN_LOSS_RTOL = 1e-3
 # the caching allocator hands out a cached block whole when splitting it
 # would leave under 1 MiB, so a freed tensor may release up to that much
 # more than its size rounded to 512 bytes
@@ -2040,23 +2095,40 @@ def decode_against_forward(params, cfg, toks, n_prompt: int, *, img=None, frames
     return torch.stack(steps, 1), want
 
 
-def _trace_decode_step(params, cfg, tok, caches, steady_ms: float, smi: str) -> dict:
-    """Device kernels, busy time and idle share of one decode step."""
+# kernel families in a profiled step, by words of their names: cuBLAS's
+# GEMMs, the foreach kernels (the AdamW update and gradient sums), and copies
+_KERNEL_GROUPS = {"GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
+                  "foreach": ("multi_tensor_apply",), "copies": ("memcpy", "memset")}
+
+
+def _trace_step(label: str, fn, steady_ms: float, smi: str) -> dict:
+    """Device kernels, busy time and idle share of one call of ``fn``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        lm_registry.decode_step(params, cfg, {"tokens": tok}, caches)
+        fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     kernels = sum(e.count for e in rows)
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"trace lm decode step ({smi}): {kernels} device kernels, device busy {busy:.3f} ms "
-        f"of a {steady_ms:.3f} ms steady step (idle share {max(0.0, 1 - busy / steady_ms):.1%});"
-        " by self device time: " + "; ".join(
+    idle = max(0.0, 1 - busy / steady_ms)
+    groups = {group: [e for e in rows if any(w in e.key.lower() for w in words)]
+              for group, words in _KERNEL_GROUPS.items()}
+    log(f"trace {label} ({smi}): {kernels} device kernels, device busy {busy:.3f} ms "
+        f"of a {steady_ms:.3f} ms steady step (idle share {idle:.1%}); "
+        + "; ".join(f"{group} {sum(e.self_device_time_total for e in es) / 1e3:.3f} ms x"
+                    f"{sum(e.count for e in es)}" for group, es in groups.items())
+        + "; by self device time: " + "; ".join(
             f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
-    return {"kernels": kernels, "busy_ms": busy}
+    return {"kernels": kernels, "busy_ms": busy, "idle": idle}
+
+
+def _trace_decode_step(params, cfg, tok, caches, steady_ms: float, smi: str) -> dict:
+    """Device kernels, busy time and idle share of one decode step."""
+    return _trace_step("lm decode step", lambda: lm_registry.decode_step(
+        params, cfg, {"tokens": tok}, caches), steady_ms, smi)
 
 
 def lm_serve(dev, smi: str) -> dict:
@@ -2225,6 +2297,338 @@ def lm_path(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3h: the language-model training path (no FREYJA kernel on it)
+# ---------------------------------------------------------------------------
+
+def _launch_train(argv) -> tuple:
+    """``launch.train.main(argv)``; its printed lines are logged after it
+    returns. Returns (what it returned, its output)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = launch_train.main(argv)
+    for line in out.getvalue().splitlines():
+        log(f"    {line}")
+    return result, out.getvalue()
+
+
+def lm_train(dev, smi: str) -> dict:
+    """3h a): smollm-360m as configured through ``launch.train`` with its
+    defaults, a resume from its checkpoint, then the steady step timed."""
+    cfg = lm_registry.get_config(LM_ARCH)
+    log(f"3h a) {LM_ARCH} as configured: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.param_dtype} weights, float32 moments, remat {cfg.remat!r}; launch/train's "
+        f"defaults: batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, --mesh none; --steps {TRAIN_STEPS} "
+        f"--ckpt-every {TRAIN_CKPT_EVERY}, then --steps {TRAIN_RESUME_TO} on the same directory")
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        argv = ["--device", str(dev), "--arch", LM_ARCH, "--ckpt-dir", root,
+                "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+        t0 = time.perf_counter()
+        (model, opt, hist), _ = _launch_train(argv + ["--steps", str(TRAIN_STEPS)])
+        first_s = sync_wall(t0)
+        if int(opt["step"]) != TRAIN_STEPS or not all(np.isfinite(h[1]) for h in hist):
+            raise AssertionError(f"3h a) launch.train: step {int(opt['step'])}, losses {hist}")
+        del model, opt
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        (model, opt, _), out = _launch_train(argv + ["--steps", str(TRAIN_RESUME_TO)])
+        resume_s = sync_wall(t0)
+        if f"[resume] restored checkpoint @ step {TRAIN_STEPS}" not in out \
+                or int(opt["step"]) != TRAIN_RESUME_TO:
+            raise AssertionError(f"3h a) the rerun did not resume at step {TRAIN_STEPS} and "
+                                 f"end at {TRAIN_RESUME_TO} (step {int(opt['step'])})")
+        ckpt_bytes = max(f.stat().st_size for f in Path(root).glob("ckpt_*.npz"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    step = build_train_step(cfg, AdamWConfig(lr=3e-4))
+    pipe = TokenPipeline(vocab=cfg.vocab, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    batches = [batch_to_device(pipe.batch(TRAIN_RESUME_TO + i), dev)
+               for i in range(TRAIN_TIMED + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+    t0 = time.perf_counter()
+    for batch in batches[:TRAIN_TIMED]:
+        model, opt, metrics = step(model, opt, batch)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+    wall_s = sync_wall(t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    steady = float(np.mean(step_ms[TRAIN_WARM:]))
+    loss = float(metrics["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"3h a) timed steps: loss {loss}")
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tflops = 6 * n_params * tokens / (steady / 1e3) / 1e12
+    trace = _trace_step("lm train step", lambda: step(model, opt, batches[-1]), steady, smi)
+    log(f"3h a) ({smi}) {n_params / 1e6:.1f}M parameters, weights {weight_bytes / 1e9:.3f} GB; "
+        f"launch.train {TRAIN_STEPS} steps {first_s:.2f} s (weights drawn, first calls, "
+        f"checkpoints), resumed to {TRAIN_RESUME_TO} in {resume_s:.2f} s; a checkpoint file "
+        f"{ckpt_bytes / 1e9:.3f} GB; steady step {steady:.3f} ms (CUDA events, mean of steps "
+        f"{TRAIN_WARM + 1}-{TRAIN_TIMED}; all {min(step_ms):.3f}-{max(step_ms):.3f} ms; host "
+        f"wall {wall_s * 1e3 / TRAIN_TIMED:.3f} ms a step); {tokens / steady * 1e3:.1f} tokens/s; "
+        f"6·N·tokens {tflops:.2f} TFLOP/s = {tflops / H100_BF16_TFLOPS:.2%} of the H100 SXM's "
+        f"{H100_BF16_TFLOPS:.0f} TFLOP/s dense bf16 (NVIDIA data sheet, 700 W); "
+        f"max_memory_allocated {peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before the "
+        f"timed steps); loss {loss:.4f}")
+    out = dict(steady_ms=steady, step_ms=step_ms, tok_s=tokens / steady * 1e3, tflops=tflops,
+               peak=peak, held=held, trace=trace, n_params=n_params, first_s=first_s,
+               resume_s=resume_s, ckpt_bytes=ckpt_bytes)
+    del model, opt, batches, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves_fit(name: str, got: dict, want: dict, atol_frac: float, rtol: float) -> float:
+    """Each leaf within atol_frac x its max |want| + rtol x |want|: the worst
+    ratio of |got - want| to that bound; raises above 1."""
+    worst = 0.0
+    for key, w in want.items():
+        w, g = w.detach().float().cpu(), got[key].detach().float().cpu()
+        bound = atol_frac * float(w.abs().max()) + rtol * w.abs()
+        ratio = float(((g - w).abs() / bound.clamp(min=1e-30)).max())
+        if not ratio <= 1.0:
+            raise AssertionError(f"{name} {key}: |got - want| reaches {ratio:.3f}x of atol "
+                                 f"{atol_frac} x max + rtol {rtol}")
+        worst = max(worst, ratio)
+    return worst
+
+
+def train_card_vs_host(dev, smi: str) -> dict:
+    """3h b): a 2-layer float32 smollm-360m drawn on the host and copied to
+    the card: gradients, 3 train steps, accum=2 against accum=1, one
+    bfloat16 accum=2 step, and a checkpoint written on the card restored on
+    the host."""
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(lm_registry.get_config(LM_ARCH), n_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    host = lm_registry.init_params(cfg, generator=torch.Generator().manual_seed(0), device=cpu)
+    card = copy.deepcopy(host).to(dev)
+    start = copy.deepcopy(card)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq=TRAIN_CHECK_S, global_batch=TRAIN_CHECK_B)
+    batches = [pipe.batch(i) for i in range(TRAIN_CHECK_STEPS)]
+    grads = {}
+    for side, model, d in (("host", host, cpu), ("card", card, dev)):
+        model.requires_grad_(True)
+        loss_fn(model, cfg, batch_to_device(batches[0], d)).backward()
+        grads[side] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+    ratios = {"grad": _leaves_fit("3h b) gradients", grads["card"], grads["host"], ATOL, RTOL)}
+
+    # the train step, on both: float32 sums in another order, as against
+    # JAX on the host (tests/test_torch_train_parity.py's rules)
+    step = build_train_step(cfg, TRAIN_CHECK_OPT)
+    hopt, copt = init_opt_state(host), init_opt_state(card)
+    masks, lr_sum, worst_metric = None, 0.0, 0.0
+    for batch in batches:
+        host, hopt, hm = step(host, hopt, batch_to_device(batch, cpu))
+        card, copt, cm = step(card, copt, batch_to_device(batch, dev))
+        for key, rtol in TRAIN_CHECK_RTOL.items():
+            h, c = float(hm[key]), float(cm[key])
+            worst_metric = max(worst_metric, abs(c - h) / abs(h) / rtol)
+            if not abs(c - h) <= rtol * abs(h):
+                raise AssertionError(f"3h b) {key}: card {c} host {h} (rtol {rtol})")
+        # resolved second moments, after every step
+        new = {k: v.sqrt() > 1e-3 * v.sqrt().max() for k, v in hopt["v"].items()}
+        masks = new if masks is None else {k: masks[k] & new[k] for k in new}
+        lr_sum += float(hm["lr"])
+    n = TRAIN_CHECK_STEPS
+    ratios["m"] = _leaves_fit("3h b) m", copt["m"], hopt["m"], n * ATOL, RTOL)
+    ratios["v"] = _leaves_fit("3h b) v", copt["v"], hopt["v"], 2 * n * ATOL, 2 * RTOL)
+    hp = dict(host.named_parameters())
+    worst_param = 0.0
+    for name, p in card.named_parameters():
+        bound = torch.where(masks[name], 2e-3, 2.0) * lr_sum
+        ratio = float(((p.detach().cpu() - hp[name].detach()).abs() / bound).max())
+        if not ratio <= 1.0:
+            raise AssertionError(f"3h b) parameter {name}: {ratio:.3f}x of its bound")
+        worst_param = max(worst_param, ratio)
+    ratios["param"] = worst_param
+
+    # accum=2 against accum=1 on the card (tests/test_train.py:86's rule)
+    batch = batch_to_device(batches[0], dev)
+    results = []
+    for accum in (1, 2):
+        model = copy.deepcopy(start)
+        model, _, met = build_train_step(cfg, AdamWConfig(lr=1e-3), accum=accum)(
+            model, init_opt_state(model), batch)
+        results.append((float(met["loss"]), model))
+    (l1, m1), (l2, m2) = results
+    accum_diff = max(float((a - b).abs().max()) for a, b in zip(m1.state_dict().values(),
+                                                                m2.state_dict().values()))
+    if not (abs(l1 - l2) <= 1e-4 * abs(l1) and accum_diff < 5e-3):
+        raise AssertionError(f"3h b) accum=2 vs accum=1: loss {l2} vs {l1}, parameters "
+                             f"{accum_diff:.3e} apart")
+
+    bf16_ratio = _bf16_accum_fits(cfg, batch, dev)
+
+    # a checkpoint written on the card, restored on the host
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        CheckpointManager(root).save_train_state(n, card, copt, cfg)
+        back = lm_registry.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                                       device=cpu)
+        bopt = init_opt_state(back)
+        CheckpointManager(root).restore_train_state(n, back, bopt, cfg)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(card.state_dict().values(),
+                                                       back.state_dict().values()))
+    same &= all(torch.equal(copt[part][k].cpu(), bopt[part][k])
+                for part in ("m", "v") for k in copt[part])
+    if not (same and int(bopt["step"]) == n):
+        raise AssertionError("3h b) the card's checkpoint did not come back bit for bit")
+    log(f"3h b) ({smi}) {LM_ARCH} at full width, 2 layers, float32, drawn on the host, "
+        f"batch {TRAIN_CHECK_B} x {TRAIN_CHECK_S}: card against host, worst fraction of the "
+        f"bound: gradients {ratios['grad']:.3f} (atol {ATOL} x max + rtol {RTOL}), after "
+        f"{n} steps m {ratios['m']:.3f}, v {ratios['v']:.3f}, parameters {ratios['param']:.3f}; "
+        f"loss / grad_norm / lr at worst {worst_metric:.3f} of rtol {TRAIN_CHECK_RTOL}; "
+        f"accum=2 vs accum=1 on the card: loss {l2:.6f} vs {l1:.6f}, parameters {accum_diff:.2e} apart (< 5e-3); "
+        f"bfloat16 accum=2 on the card: m against the float32 sum of the step's own two "
+        f"bfloat16 micro-gradients at worst {bf16_ratio:.3f} of rtol 1e-6 (a bfloat16 sum is up "
+        f"to 2^-9 off); checkpoint card -> host bit for bit ({sync_wall(t0):.2f} s)")
+    return {"ratios": ratios, "accum_diff": accum_diff, "bf16_accum": bf16_ratio}
+
+
+def _bf16_accum_fits(cfg, batch: dict, dev) -> float:
+    """One accum=2 step of ``cfg`` in bfloat16 on the card: the first moment
+    must be (1 - b1)·scale·(g0 + g1)/2 summed in float32 from the step's own
+    bfloat16 micro-gradients, caught as each backward leaves them, within
+    rtol 1e-6. Returns the worst fraction of that bound."""
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = lm_registry.init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+    model.requires_grad_(True)
+    micro = {}
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, n=n: micro.setdefault(n, []).append(p.grad.clone()))
+        for n, p in model.named_parameters()]
+    opt_cfg = AdamWConfig(lr=1e-3)
+    model, opt, met = build_train_step(cfg, opt_cfg, accum=2)(model, init_opt_state(model),
+                                                              batch)
+    for hook in hooks:
+        hook.remove()
+    scale = torch.clamp(opt_cfg.grad_clip / torch.clamp(met["grad_norm"], min=1e-9), max=1.0)
+    worst = 0.0
+    for name, grads in micro.items():
+        if len(grads) != 2 or grads[0].dtype != torch.bfloat16:
+            raise AssertionError(f"3h b) bfloat16 accum=2: {name} got {len(grads)} "
+                                 f"micro-gradients of {grads[0].dtype}")
+        want = (grads[0].float() + grads[1].float()) / 2 * scale * (1 - opt_cfg.b1)
+        got = opt["m"][name]
+        ratio = float(((got - want).abs() / (1e-6 * want.abs()).clamp(min=1e-30)).max())
+        if not (got.dtype == torch.float32 and ratio <= 1.0):
+            raise AssertionError(f"3h b) bfloat16 accum=2: m {name} ({got.dtype}) is "
+                                 f"{ratio:.3f}x of rtol 1e-6 from the float32 sum")
+        worst = max(worst, ratio)
+    if not np.isfinite(float(met["loss"])):
+        raise AssertionError(f"3h b) bfloat16 accum=2: loss {float(met['loss'])}")
+    del model, opt, micro
+    torch.cuda.empty_cache()
+    return worst
+
+
+def train_families(dev, smi: str) -> dict:
+    """3h c): every other family at its published width, cut in depth, one
+    train step as configured (bf16 weights, float32 moments, block remat)."""
+    out = {}
+    for arch, (layers, _, seq) in LM_FAMILIES.items():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        base = lm_registry.get_config(arch)
+        layers = TRAIN_LAYERS.get(arch, layers)
+        cfg = base if layers is None else dataclasses.replace(base, n_layers=layers)
+        gen = torch.Generator(dev).manual_seed(0)
+        model = lm_registry.init_params(cfg, generator=gen, device=dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        b = TRAIN_FAMILY_BATCH
+        toks = _lm_tokens(cfg, b, TRAIN_WHISPER_TOKENS if cfg.family == "encdec" else seq, 4,
+                          dev)
+        labels = torch.roll(toks, -1, dims=1)
+        labels[:, -1] = -1
+        batch = {"tokens": toks, "labels": labels}
+        if cfg.family == "vlm":
+            batch["img"] = torch.randn((b, cfg.n_patches, cfg.d_model), generator=gen,
+                                       device=dev) * 0.02
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn((b, seq, cfg.d_model), generator=gen,
+                                          device=dev) * 0.02
+        with torch.no_grad():
+            want = float(cross_entropy(lm_registry.forward(model, cfg, batch), labels))
+        opt = init_opt_state(model)
+        model, opt, met = build_train_step(cfg, AdamWConfig())(model, opt, batch)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        finite = bool(torch.isfinite(torch.stack(torch._foreach_norm(
+            list(model.parameters())))).all())
+        wall = sync_wall(t0)
+        peak = torch.cuda.max_memory_allocated()
+        rel = abs(loss - want) / abs(want)
+        if not (rel <= TRAIN_LOSS_RTOL and np.isfinite(gnorm) and gnorm > 0 and finite):
+            raise AssertionError(f"3h c) {arch}: loss {loss} vs no-grad forward {want} (rel "
+                                 f"{rel:.2e}), grad norm {gnorm}, parameters finite {finite}")
+        if layers is not None:
+            cut = f"{base.n_layers} -> {cfg.n_layers} layers"
+        elif cfg.family == "encdec":
+            cut = f"{cfg.enc_layers} + {cfg.dec_layers} layers as configured"
+        else:
+            cut = f"{cfg.n_layers} layers as configured"
+        if arch in TRAIN_LAYERS:
+            cut += " (2 layers' float32 training state, 80.6 GiB, exceeds the card)"
+        shape = (f"{TRAIN_WHISPER_TOKENS} tokens, {seq} encoder frames"
+                 if cfg.family == "encdec" else f"{seq} tokens"
+                 + (f", the first {cfg.n_patches} image-stub positions"
+                    if cfg.family == "vlm" else ""))
+        log(f"3h c) {arch} ({cut}; batch {b} x {shape}; {cfg.param_dtype}, remat "
+            f"{cfg.remat!r}; {n_params / 1e6:.1f}M params): one train step, loss {loss:.5f} vs "
+            f"the no-grad forward's {want:.5f} (rel {rel:.2e} <= {TRAIN_LOSS_RTOL}), grad norm "
+            f"{gnorm:.4f} (finite, so is every gradient), wall {wall:.2f} s, "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB ({smi})")
+        out[arch] = {"rel": rel, "wall": wall, "peak": peak, "n_params": n_params}
+        del model, opt, batch, met, toks, labels
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_example(dev, smi: str) -> dict:
+    """3h d): examples/torch_train_lm.py at its defaults on the card."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_example_")
+    try:
+        example = runpy.run_path(str(Path(__file__).resolve().parent / "examples" /
+                                     "torch_train_lm.py"))
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            hist = example["main"](["--device", str(dev), "--ckpt-dir", root])
+        wall = sync_wall(t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    first, last = hist[0][1], hist[-1][1]
+    log(f"3h d) ({smi}) examples/torch_train_lm.py at its defaults: "
+        f"{out.getvalue().splitlines()[0]}; loss {first:.4f} -> {last:.4f} (steps "
+        f"{hist[0][0]} and {hist[-1][0]}), {wall:.2f} s")
+    return {"first": first, "last": last, "wall": wall}
+
+
+def lm_train_path(dev, smi: str) -> dict:
+    """Phase 3h: a) smollm-360m trained at full width and depth through
+    launch.train, with a resume; b) the card against the host in float32;
+    c) every other family's train step at its published width; d) the
+    example."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("3h compares float32 training: TF32 matmuls must be off")
+    out = {"train": lm_train(dev, smi), "host": train_card_vs_host(dev, smi),
+           "families": train_families(dev, smi), "example": train_example(dev, smi)}
+    return out
+
+
 def counted(path: str, required, drive):
     """Drive one path of phase 3 with every launch count set to 0 just
     before it, read the counts just after, and fail if a kernel of the path
@@ -2333,6 +2737,21 @@ def main() -> int:
         f"tolerance, bf16 vs float32 {lm['fp32']['bf16_rel']:.4f}; families "
         + ", ".join(f"{k} {v['ratio']:.3f}" for k, v in lm["families"].items())
         + f"; card vs host {lm['host']['ratio']:.3f}; launches {lm_counts}")
+
+    # phase 3h: the language-model training path, which has no FREYJA kernel
+    trained, train_counts = counted("train", (), lambda: lm_train_path(dev, smi))
+    if any(train_counts.values()):
+        raise AssertionError(f"the train path launched FREYJA kernels: {train_counts}")
+    t = trained["train"]
+    log(f"train summary ({smi}): {LM_ARCH} {t['n_params'] / 1e6:.1f}M params, bf16, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: {t['steady_ms']:.3f} ms a step, {t['tok_s']:.1f} "
+        f"tokens/s, {t['tflops']:.2f} TFLOP/s ({t['tflops'] / H100_BF16_TFLOPS:.2%} of dense "
+        f"bf16 peak), {t['trace']['kernels']} kernels a step, idle share "
+        f"{t['trace']['idle']:.1%}, max_memory_allocated {t['peak'] / 2**20:.1f} MiB; card vs "
+        f"host {trained['host']['ratios']}; families' loss vs forward "
+        + ", ".join(f"{k} {v['rel']:.1e}" for k, v in trained["families"].items())
+        + f"; example loss {trained['example']['first']:.3f} -> "
+        f"{trained['example']['last']:.3f}; launches {train_counts}")
 
     # phase 4: kernels at the main path's shapes
     t0 = time.perf_counter()

@@ -1,4 +1,5 @@
-"""Data pipelines of the port: the FREYJA-augmented tabular path."""
-from repro_torch.data.pipeline import augmented_table_pipeline
+"""Data pipelines of the port: the synthetic token pipeline and the
+FREYJA-augmented tabular path."""
+from repro_torch.data.pipeline import TokenPipeline, augmented_table_pipeline
 
-__all__ = ["augmented_table_pipeline"]
+__all__ = ["TokenPipeline", "augmented_table_pipeline"]

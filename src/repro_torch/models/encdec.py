@@ -18,7 +18,7 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (MLP, Embed, Norm, apply_mlp, apply_norm, dtype_of,
                                        embed_tokens, lm_logits)
-from repro_torch.models.transformer import cached_attention
+from repro_torch.models.transformer import cached_attention, remat
 
 
 class EncBlock(nn.Module):
@@ -61,15 +61,27 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
+def _enc_block(pl, cfg, x, positions):
+    h = apply_norm(pl.ln1, x, cfg.norm)
+    x = x + attn.attention_train(pl.attn, cfg, h, positions, causal=False)
+    return x + apply_mlp(pl.mlp, apply_norm(pl.ln2, x, cfg.norm), cfg.act)
+
+
+def _dec_block(pl, cfg, x, positions, memory):
+    h = apply_norm(pl.ln1, x, cfg.norm)
+    x = x + attn.attention_train(pl.attn, cfg, h, positions)
+    h = apply_norm(pl.ln_cross, x, cfg.norm)
+    x = x + attn.attention_train(pl.cross, cfg, h, positions, xkv=memory, causal=False)
+    return x + apply_mlp(pl.mlp, apply_norm(pl.ln2, x, cfg.norm), cfg.act)
+
+
 def encode(params: EncDec, cfg, frames):
     """frames (B, S_enc, d_model) stub embeddings -> encoder memory."""
     x = frames.to(dtype_of(cfg.compute_dtype))
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     for pl in params.enc_blocks:
-        h = apply_norm(pl.ln1, x, cfg.norm)
-        x = x + attn.attention_train(pl.attn, cfg, h, positions, causal=False)
-        x = x + apply_mlp(pl.mlp, apply_norm(pl.ln2, x, cfg.norm), cfg.act)
+        x = remat(cfg, _enc_block, pl, cfg, x, positions)
     return apply_norm(params.enc_norm, x, cfg.norm)
 
 
@@ -80,11 +92,7 @@ def forward(params: EncDec, cfg, tokens, frames):
     b, s = tokens.shape
     positions = _positions(b, s, x.device)
     for pl in params.dec_blocks:
-        h = apply_norm(pl.ln1, x, cfg.norm)
-        x = x + attn.attention_train(pl.attn, cfg, h, positions)
-        h = apply_norm(pl.ln_cross, x, cfg.norm)
-        x = x + attn.attention_train(pl.cross, cfg, h, positions, xkv=memory, causal=False)
-        x = x + apply_mlp(pl.mlp, apply_norm(pl.ln2, x, cfg.norm), cfg.act)
+        x = remat(cfg, _dec_block, pl, cfg, x, positions, memory)
     x = apply_norm(params.final_norm, x, cfg.norm)
     return lm_logits(params.embed, x)
 

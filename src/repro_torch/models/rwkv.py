@@ -7,8 +7,10 @@ The port of ``repro.models.rwkv``. Time-mix recurrence per head
     y_t = r_t · (S_{t-1} + diag(u) kᵀ_t v_t)
 
 with w_t = exp(-exp(w0 + lora(x_t))) ∈ (0,1) per channel. The recurrence
-runs as a loop over tokens (``_wkv_scan``); the JAX package wraps chunks of
-``cfg.rwkv_chunk`` steps in ``jax.checkpoint``, which only bounds training
+runs as a loop over tokens (``_wkv_scan``). With gradients on it runs in
+chunks of ``cfg.rwkv_chunk`` tokens, each under ``torch.utils.checkpoint``
+as the JAX package's chunks are under ``jax.checkpoint``: the backward pass
+keeps one state a chunk and recomputes the rest, which bounds training
 memory and leaves the values as they are. Channel-mix is the RWKV
 squared-ReLU FFN with token shift.
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import dense_init, full
 
@@ -64,12 +67,26 @@ def _head_groupnorm(y, scale, n_heads, eps=1e-5):
     return (yh.reshape(b, s, d) * scale.float()).to(y.dtype)
 
 
-def _wkv_scan(r, k, v, w, u, state):
-    """The WKV recurrence, one token at a time.
+def _wkv_scan(r, k, v, w, u, state, chunk: int):
+    """The WKV recurrence: one token at a time, and with gradients on in
+    checkpointed chunks of ``chunk`` tokens (the last may be shorter).
 
     r,k,v,w: (B, S, H, K) f32 (w = decay in (0,1)); u (H, K);
     state (B, H, K, K). Returns (y (B,S,H,K), final state).
     """
+    s = r.shape[1]
+    if not torch.is_grad_enabled() or s <= chunk:
+        return _wkv_tokens(r, k, v, w, u, state)
+    ys = []
+    for lo in range(0, s, chunk):
+        sl = slice(lo, lo + chunk)
+        y, state = checkpoint(_wkv_tokens, r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, state,
+                              use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
+def _wkv_tokens(r, k, v, w, u, state):
     ys = []
     bonus = u[None, :, :, None]
     for t in range(r.shape[1]):
@@ -100,7 +117,7 @@ def rwkv_block_forward(p: RWKVBlock, cfg, x, state=None):
     wlog = p.w0[None, None] + (torch.tanh(xw @ p.w_lora_a) @ p.w_lora_b).float()
     w = torch.exp(-torch.exp(torch.clamp(wlog, -8.0, 1.0))).reshape(b, s, h, kd)
     u = p.u.float().reshape(h, kd)
-    y, wkv = _wkv_scan(r, k, v, w, u, state["wkv"])
+    y, wkv = _wkv_scan(r, k, v, w, u, state["wkv"], cfg.rwkv_chunk)
     y = y.reshape(b, s, d).to(x.dtype)
     y = _head_groupnorm(y, p.ln_scale, h) * g
     x = x + y @ p.wo

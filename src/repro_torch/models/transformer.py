@@ -29,6 +29,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -136,21 +137,38 @@ def _shared_block(params, cfg, x, positions, *, return_kv: bool = False):
     return (x, kv) if return_kv else x
 
 
+def remat(cfg, fn, *args):
+    """``fn(*args)``; under ``cfg.remat == "block"`` with gradients on, its
+    activations are recomputed in the backward pass instead of kept
+    (``jax.checkpoint`` of the JAX package's scanned block bodies). The
+    values are the same either way."""
+    if cfg.remat == "block" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _rwkv_block(pl, cfg, x):
+    return rwkv_mod.rwkv_block_forward(pl, cfg, x)[0]
+
+
+def _mamba_block(pl, norm, cfg, x):
+    return x + ssm_mod.mamba2_forward(pl, cfg, apply_norm(norm, x, cfg.norm))
+
+
 def forward(params: LM, cfg, tokens, *, img=None):
     """Training/prefill forward. tokens (B, S) -> logits (B, S, V) f32."""
     x, positions = _embed_inputs(params, cfg, tokens, img)
     if cfg.family in ("dense", "moe", "vlm"):
         for pl in params.blocks:
-            x = _dense_block_fwd(pl, cfg, x, positions)
+            x = remat(cfg, _dense_block_fwd, pl, cfg, x, positions)
     elif cfg.family == "ssm":
         for pl in params.blocks:
-            x, _ = rwkv_mod.rwkv_block_forward(pl, cfg, x)
+            x = remat(cfg, _rwkv_block, pl, cfg, x)
     elif cfg.family == "hybrid":
         for group in hybrid_groups(cfg):
             for i in group:
-                h = apply_norm(params.blocks_norm[i], x, cfg.norm)
-                x = x + ssm_mod.mamba2_forward(params.blocks[i], cfg, h)
-            x = _shared_block(params, cfg, x, positions)
+                x = remat(cfg, _mamba_block, params.blocks[i], params.blocks_norm[i], cfg, x)
+            x = remat(cfg, _shared_block, params, cfg, x, positions)
     else:
         raise ValueError(cfg.family)
     x = apply_norm(params.final_norm, x, cfg.norm)

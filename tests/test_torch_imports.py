@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 its entry points refuse to run on the host unless the caller asks for it."""
+import importlib
 import os
 import shutil
 import subprocess
@@ -20,6 +21,7 @@ from repro_torch.exec.executor import Executor
 from repro_torch.kernels import _build
 from repro_torch.launch import discover
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import (make_grid_mesh, make_local_mesh, make_replica_devices,
                                      make_replica_meshes)
 from repro_torch.models import registry as lm_registry
@@ -74,6 +76,11 @@ _LM_MODULES = {f"repro_torch.models.{m}" for m in (
         "smollm_360m", "stablelm_3b", "qwen3_4b", "qwen15_32b", "mixtral_8x22b", "phi35_moe",
         "zamba2_27b", "whisper_base", "phi3_vision", "rwkv6_3b", "freyja_discovery")} | {
     "repro_torch.serve", "repro_torch.serve.engine", "repro_torch.launch.serve"}
+# modules of the language-model training path
+_TRAIN_MODULES = {"repro_torch.train", "repro_torch.train.optimizer",
+                  "repro_torch.train.trainer", "repro_torch.train.loop", "repro_torch.ckpt",
+                  "repro_torch.ckpt.manager", "repro_torch.launch.train",
+                  "repro_torch.convert", "repro_torch.data.pipeline"}
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 
 
@@ -89,6 +96,75 @@ def test_port_imports_without_jax_or_repro():
     assert _FLEET_MODULES <= names, _FLEET_MODULES - names
     assert _GRID_MODULES <= names, _GRID_MODULES - names
     assert _LM_MODULES <= names, _LM_MODULES - names
+    assert _TRAIN_MODULES <= names, _TRAIN_MODULES - names
+
+
+_EACH_FIRST = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    for loaded in [k for k in sys.modules if k.startswith("repro_torch")]:
+        del sys.modules[loaded]
+    importlib.import_module(name)
+print(len(names))
+"""
+
+
+def test_every_module_imports_first():
+    """Each module imports into an interpreter that holds no other module of
+    the port (no import cycle finds a package half-initialised)."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", _EACH_FIRST], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) >= 29
+
+
+_EXPORTS = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch.{pkg} as pkg
+for name in pkg.__all__:
+    getattr(pkg, name)
+print(" ".join(pkg.__all__))
+"""
+
+
+# the JAX package's names with no counterpart in the port: it compiles no
+# XLA executables (its kernel libraries persist in build/repro_torch/)
+_NOT_PORTED = {"exec": {"ExecutableCache", "environment_signature"}}
+
+
+def _public(*modules) -> set[str]:
+    """The names the JAX modules define (not import) and do not hide."""
+    return {n for mod in modules for n, v in vars(mod).items()
+            if not n.startswith("_") and getattr(v, "__module__", "") == mod.__name__}
+
+
+# each package of the port, and the JAX package's modules whose public
+# names it exports (None: the JAX package's own ``__all__``)
+_PACKAGES = {"core": None, "exec": None, "data": ("data.pipeline",),
+             "train": ("train.optimizer", "train.trainer", "train.loop"),
+             "ckpt": ("ckpt.manager",)}
+
+
+@pytest.mark.parametrize("pkg", sorted(_PACKAGES))
+def test_package_exports_match_the_jax_package(pkg):
+    """Each package of the port exports the JAX package's names, and they
+    import without JAX."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", _EXPORTS.format(pkg=pkg)], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    if _PACKAGES[pkg] is None:
+        want = set(importlib.import_module(f"repro.{pkg}").__all__)
+    else:
+        want = _public(*(importlib.import_module(f"repro.{m}") for m in _PACKAGES[pkg]))
+    assert set(out.stdout.split()) == want - _NOT_PORTED.get(pkg, set())
 
 
 def test_no_sharded_configuration_is_left_unported():
@@ -102,19 +178,29 @@ _RUN_EXAMPLE = """
 import runpy, sys
 sys.modules["jax"] = None          # any import of jax now raises
 sys.modules["repro"] = None        # ... and of the JAX package
-sys.argv = [{path!r}, "--device", "cpu"]
+sys.argv = [{path!r}, "--device", "cpu", *{flags!r}]
 runpy.run_path({path!r}, run_name="__main__")
 """
+# the training example at a small size (its defaults train 200 steps)
+_EXAMPLE_FLAGS = {"torch_train_lm": ["--steps", "30", "--batch", "2", "--seq", "32",
+                                     "--width", "128", "--layers", "2"]}
 
 
 @pytest.mark.parametrize("name", ["torch_quickstart", "torch_service_quickstart",
-                                  "torch_follower_quickstart", "torch_discover_augment"])
+                                  "torch_follower_quickstart", "torch_discover_augment",
+                                  "torch_train_lm"])
 def test_example_runs_without_jax_or_repro(tmp_path, name):
     path = os.path.abspath(os.path.join(EXAMPLES, f"{name}.py"))
+    flags = _EXAMPLE_FLAGS.get(name, [])
     env = dict(os.environ, TMPDIR=str(tmp_path))
+    if name == "torch_train_lm":
+        flags = flags + ["--ckpt-dir", str(tmp_path / "ckpt")]
+        # many small ops: beside other test workers, one intra-op thread
+        # (tests/_torch_train.py's one_thread)
+        env["OMP_NUM_THREADS"] = "1"
     env.pop("PYTHONPATH", None)                 # the example finds the port itself
-    out = subprocess.run([sys.executable, "-c", _RUN_EXAMPLE.format(path=path)], env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", _RUN_EXAMPLE.format(path=path, flags=flags)],
+                         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
 
 
@@ -207,6 +293,8 @@ _ENTRY_POINTS = {
         np.ones((1, 4), np.int32), max_new=2),
     "launch.serve.main": lambda lake, prof, model: launch_serve.main(
         ["--reduce", "--batch", "1", "--prompt-len", "4", "--max-new", "2"]),
+    "launch.train.main": lambda lake, prof, model: launch_train.main(
+        ["--reduce", "--steps", "1", "--batch", "2", "--seq", "8", "--ckpt-dir", "unused"]),
 }
 
 _LM_CFG = lm_registry.reduced_config(lm_registry.get_config("smollm-360m"))

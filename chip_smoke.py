@@ -105,6 +105,29 @@ Phases:
       the cross-entropy of a no-grad forward pass over the same weights,
       its grad norm is finite and positive; (d) ``examples/
       torch_train_lm.py`` at its defaults (200 steps): its loss falls.
+   i. the sharded language-model path (``dist``: logical-axis rules,
+      ZeRO-1 moments, the MoE's tp/ep collectives, the int8 error-feedback
+      compressor), which launches none of the FREYJA kernels either (the
+      run fails if one launches): (a) smollm-360m as configured (32
+      layers, bf16, batch 8 x 256) on ``make_local_mesh(model=2,
+      devices=[card] * 4)``, a (2, 2) mesh over four copies of the card,
+      in tp mode with ZeRO-1 moments: the steady step by CUDA events,
+      tokens/s, kernels a step, one profiled step's idle share and
+      ``max_memory_allocated``, beside (h)'s unsharded step of this run;
+      then ``launch.train --mesh local`` for 3 steps (a (1, 1) mesh on the
+      one card); (b) the same model at full width cut to 4 layers, float32
+      (TF32 off), on that mesh in tp, fsdp and dp: 3 steps against the
+      single-device step at the data ranks' split (``accum=2``: the same
+      float32 sums of two 2-row gradients) by (h) b)'s rules (loss, grad
+      norm, lr, moments, parameters), and one step with the int8
+      compressor: the gradients it receives against that step's, the
+      loss, and the update bit for bit against a one-device
+      ``adamw_update`` of the gradients it returned; the distance of both
+      to the ``accum=1`` step is logged beside; (c) phi3.5-moe (ep) and mixtral-8x22b (tp) at their
+      published width cut to 1 layer, float32, on ``[card] * 8`` as a
+      (2, 4) mesh: the sharded forward on the card against the same call
+      on a host mesh (max |diff| / max |logit| < 1e-5, the sharded-MoE
+      bound of tests/test_torch_dist.py), at 2 x 64 tokens.
    Each plan's ids are held against a plain pipeline over the same
    candidates (plain probes and plain scorers); the quantized top-10 must
    overlap the float32 one by at least 0.99. The model path's distances
@@ -173,10 +196,13 @@ from repro_torch.kernels.profile_distance import (                # noqa: E402
 from repro_torch.kernels.quality_cdf import quality_cdf_cuda      # noqa: E402
 from repro_torch.ckpt.manager import CheckpointManager           # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline               # noqa: E402
+from repro_torch.dist import sharding as shd                      # noqa: E402
+from repro_torch.dist.collectives import gather                   # noqa: E402
+from repro_torch.dist.compression import make_int8_ef_allreduce   # noqa: E402
 from repro_torch.launch import serve as launch_serve              # noqa: E402
 from repro_torch.launch import train as launch_train              # noqa: E402
 from repro_torch.launch.bench_scorer import launch_floor          # noqa: E402
-from repro_torch.launch.mesh import make_grid_mesh                # noqa: E402
+from repro_torch.launch.mesh import make_grid_mesh, make_local_mesh  # noqa: E402
 from repro_torch.models import encdec as lm_encdec                # noqa: E402
 from repro_torch.models import registry as lm_registry            # noqa: E402
 from repro_torch.models import transformer as lm_transformer      # noqa: E402
@@ -189,7 +215,8 @@ from repro_torch.service import (CatalogReader, CatalogStore,     # noqa: E402
 from repro_torch.service.fleet import EVICTED, SERVING, WARMING   # noqa: E402
 from repro_torch.service.lsh import LSHConfig, LSHIndex           # noqa: E402
 from repro_torch.train.loop import batch_to_device                # noqa: E402
-from repro_torch.train.optimizer import AdamWConfig, init_opt_state  # noqa: E402
+from repro_torch.train.optimizer import (AdamWConfig, adamw_update,  # noqa: E402
+                                         init_opt_state)
 from repro_torch.train.trainer import build_train_step, cross_entropy, loss_fn  # noqa: E402
 
 # the main path's geometry
@@ -295,6 +322,20 @@ TRAIN_WHISPER_TOKENS = 448
 # the same kernels, except the MoEs' index_add_, whose atomics may sum in
 # another order
 TRAIN_LOSS_RTOL = 1e-3
+# the sharded language-model path: a (2, 2) mesh over four copies of the
+# card for smollm-360m (its steady step timed as 3h's), 4 layers at full
+# width for the float32 checks, launch.train --mesh local for 3 steps, and
+# the MoEs at published width, 1 layer, on a (2, 4) mesh of eight copies at
+# a token count the host runs in seconds (b x s)
+SHARD_MODEL, SHARD_CARDS, SHARD_CHECK_LAYERS, SHARD_LAUNCH_STEPS = 2, 4, 4, 3
+SHARD_MOES = ("phi3.5-moe-42b-a6.6b", "mixtral-8x22b")
+SHARD_MOE_MESH, SHARD_MOE_B, SHARD_MOE_S = (2, 4), 2, 64
+# the card's sharded MoE forward against the host's: max |diff| / max
+# |logit|, the sharded-MoE bound of tests/test_torch_dist.py (float32 sums
+# over d_model 6144 and d_ff 16384 in another order; the elementwise
+# rtol 1e-4 / atol 1e-5 of 3g d) was reached 1.262x by Mixtral, max |diff|
+# 1.52e-5 of max |logit| ~5, on an H100 80GB HBM3)
+SHARD_MOE_REL = 1e-5
 # the caching allocator hands out a cached block whole when splitting it
 # would leave under 1 MiB, so a freed tensor may release up to that much
 # more than its size rounded to 512 bytes
@@ -2629,6 +2670,303 @@ def lm_train_path(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3i: the sharded language-model path (no FREYJA kernel on it)
+# ---------------------------------------------------------------------------
+
+def _placed(cfg, model, mesh, zero1: bool = True):
+    """``launch.train``'s sequence: the weights placed by ``param_shardings``,
+    moments by ``zero1_shardings`` (``zero1=False``: like the weights, as
+    under fsdp, where the batch axes already split ``embed``). Returns
+    (placed weights, AdamW state, moment specs or None)."""
+    specs = lm_registry.param_specs(cfg)
+    shapes = shd.jax_layout(model, cfg)
+    placed = shd.place_params(model, shd.param_shardings(specs, mesh), cfg)
+    moments = shd.zero1_shardings(specs, shapes, mesh) if zero1 else None
+    opt = init_opt_state(placed, moments, cfg=cfg)
+    return placed, opt, None if moments is None else shd.specs_of(moments)
+
+
+def _whole(placed, opt) -> tuple[dict, dict]:
+    """A sharded state gathered whole on the host."""
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        return placed.full(cpu), {part: {n: gather(t, cpu) for n, t in opt[part].items()}
+                                  for part in ("m", "v")}
+
+
+def lm_sharded_train(dev, smi: str, unsharded: dict) -> dict:
+    """3i a): smollm-360m as configured on a (2, 2) mesh over four copies of
+    the card in tp mode with ZeRO-1 moments, the steady step timed as 3h
+    a)'s; then launch.train --mesh local."""
+    shd.set_mode("tp")
+    cfg = lm_registry.get_config(LM_ARCH)
+    mesh = make_local_mesh(model=SHARD_MODEL, devices=[dev] * SHARD_CARDS)
+    model = lm_registry.init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    placed, opt, moment_specs = _placed(cfg, model, mesh)
+    del model
+    torch.cuda.empty_cache()
+    step = build_train_step(cfg, AdamWConfig(lr=3e-4), mesh=mesh, moment_specs=moment_specs)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    batches = [batch_to_device(pipe.batch(i), dev) for i in range(TRAIN_TIMED + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+    t0 = time.perf_counter()
+    for batch in batches[:TRAIN_TIMED]:
+        _, opt, metrics = step(placed, opt, batch)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+    wall_s = sync_wall(t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    steady = float(np.mean(step_ms[TRAIN_WARM:]))
+    loss = float(metrics["loss"])
+    if not (np.isfinite(loss) and int(opt["step"]) == TRAIN_TIMED):
+        raise AssertionError(f"3i a) sharded steps: loss {loss}, step {int(opt['step'])}")
+    trace = _trace_step("lm sharded train step", lambda: step(placed, opt, batches[-1]),
+                        steady, smi)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"3i a) ({smi}) {LM_ARCH} {n_params / 1e6:.1f}M params, bf16, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, mesh {mesh.shape} over {SHARD_CARDS} copies of the card, tp, ZeRO-1: "
+        f"steady step {steady:.3f} ms (CUDA events, mean of steps {TRAIN_WARM + 1}-"
+        f"{TRAIN_TIMED}; all {min(step_ms):.3f}-{max(step_ms):.3f} ms; host wall "
+        f"{wall_s * 1e3 / TRAIN_TIMED:.3f} ms a step), {tokens / steady * 1e3:.1f} tokens/s; "
+        f"beside 3h's unsharded step {unsharded['steady_ms']:.3f} ms ({unsharded['tok_s']:.1f} "
+        f"tokens/s, {unsharded['trace']['kernels']} kernels, idle "
+        f"{unsharded['trace']['idle']:.1%}, max_memory_allocated "
+        f"{unsharded['peak'] / 2**20:.1f} MiB); max_memory_allocated {peak / 2**20:.1f} MiB "
+        f"({held / 2**20:.1f} MiB held before the timed steps); loss {loss:.4f}")
+    out = dict(steady_ms=steady, step_ms=step_ms, tok_s=tokens / steady * 1e3, peak=peak,
+               held=held, trace=trace, n_params=n_params)
+    del placed, opt, batches, metrics, step
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0 = time.perf_counter()
+        (model, opt, hist), _ = _launch_train(
+            ["--device", str(dev), "--arch", LM_ARCH, "--ckpt-dir", root, "--mesh", "local",
+             "--steps", str(SHARD_LAUNCH_STEPS), "--ckpt-every", str(SHARD_LAUNCH_STEPS)])
+        launch_s = sync_wall(t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not (isinstance(model, shd.ShardedModel) and model.mesh.shape == {"data": 1, "model": 1}
+            and int(opt["step"]) == SHARD_LAUNCH_STEPS
+            and all(np.isfinite(h[1]) for h in hist)):
+        raise AssertionError(f"3i a) launch.train --mesh local: {type(model).__name__}, "
+                             f"step {int(opt['step'])}, losses {hist}")
+    log(f"3i a) launch.train --mesh local: a {model.mesh.shape} mesh on the card, "
+        f"{SHARD_LAUNCH_STEPS} steps in {launch_s:.2f} s (weights drawn, first calls, a "
+        f"checkpoint), losses {[round(h[1], 4) for h in hist]}")
+    out["launch_s"] = launch_s
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fit_ratio(got: dict, want: dict, atol_frac: float, rtol: float) -> float:
+    """The worst |got - want| / (atol_frac x the leaf's max |want| + rtol x
+    |want|) over the leaves (``_leaves_fit``'s ratio, without raising)."""
+    worst = 0.0
+    for key, w in want.items():
+        w, g = w.detach().float().cpu(), got[key].detach().float().cpu()
+        bound = atol_frac * float(w.abs().max()) + rtol * w.abs()
+        worst = max(worst, float(((g - w).abs() / bound.clamp(min=1e-30)).max()))
+    return worst
+
+
+def _one_device_steps(cfg, base, batches, accum: int) -> dict:
+    """TRAIN_CHECK_STEPS single-device steps of a copy of ``base`` at
+    ``accum``: the metrics, the final parameters and moments on the host,
+    the resolved-moment masks, the summed learning rate, and the first
+    step's gradients (caught by a hook that returns them as they are)."""
+    model = copy.deepcopy(base)
+    opt = init_opt_state(model)
+    caught = {}
+
+    def catch(grads, state):
+        caught.setdefault("grads", {k: v.detach().clone() for k, v in grads.items()})
+        return grads, state
+
+    step = build_train_step(cfg, TRAIN_CHECK_OPT, accum=accum, compressor=catch)
+    out = {"metrics": [], "masks": None, "lr_sum": 0.0}
+    for batch in batches:
+        model, opt, met = step(model, opt, batch)
+        out["metrics"].append({k: float(met[k]) for k in TRAIN_CHECK_RTOL})
+        new = {k: v.sqrt() > 1e-3 * v.sqrt().max() for k, v in opt["v"].items()}
+        out["masks"] = new if out["masks"] is None else {k: out["masks"][k] & new[k]
+                                                         for k in new}
+        out["lr_sum"] += out["metrics"][-1]["lr"]
+    out["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    out["m"] = {n: t.cpu() for n, t in opt["m"].items()}
+    out["v"] = {n: t.cpu() for n, t in opt["v"].items()}
+    out["grads"] = caught["grads"]
+    return out
+
+
+def _state_ratios(metrics, params, moments, ref: dict) -> dict:
+    """A run's metrics, parameters and moments against ``_one_device_steps``'
+    by 3h b)'s rules, as worst fractions of each bound."""
+    n = TRAIN_CHECK_STEPS
+    metric = max(abs(got[k] - want[k]) / abs(want[k]) / rtol
+                 for got, want in zip(metrics, ref["metrics"])
+                 for k, rtol in TRAIN_CHECK_RTOL.items())
+    param = max(float(((params[k] - w).abs()
+                       / (torch.where(ref["masks"][k].cpu(), 2e-3, 2.0) * ref["lr_sum"])).max())
+                for k, w in ref["params"].items())
+    return {"metric": metric, "m": _fit_ratio(moments["m"], ref["m"], n * ATOL, RTOL),
+            "v": _fit_ratio(moments["v"], ref["v"], 2 * n * ATOL, 2 * RTOL), "param": param}
+
+
+def lm_sharded_check(dev, smi: str) -> dict:
+    """3i b): 4 layers at full width, float32, on the (2, 2) mesh in tp,
+    fsdp and dp, against the single-device step at the data ranks' split
+    of the batch (``accum`` = the data ranks: the same float32 sums of
+    per-rank gradients), with and without the int8 compressor; the
+    distance of both to the accum=1 step is reported beside."""
+    cfg = dataclasses.replace(lm_registry.get_config(LM_ARCH), n_layers=SHARD_CHECK_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    mesh = make_local_mesh(model=SHARD_MODEL, devices=[dev] * SHARD_CARDS)
+    n_ranks = shd.n_data_ranks(mesh)
+    base = lm_registry.init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                                   device=dev)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq=TRAIN_CHECK_S, global_batch=TRAIN_CHECK_B)
+    batches = [batch_to_device(pipe.batch(i), dev) for i in range(TRAIN_CHECK_STEPS)]
+    split = _one_device_steps(cfg, base, batches, n_ranks)
+    whole = _one_device_steps(cfg, base, batches, 1)
+    floor = _state_ratios(split["metrics"], split["params"], split, whole)
+    floor["grad"] = _fit_ratio(split["grads"], whole["grads"], ATOL, RTOL)
+    out = {"accum_vs_whole": floor}
+    for mode in ("tp", "fsdp", "dp"):
+        t0 = time.perf_counter()
+        shd.set_mode(mode)
+        placed, opt, moment_specs = _placed(cfg, base, mesh, zero1=mode != "fsdp")
+        step = build_train_step(cfg, TRAIN_CHECK_OPT, mesh=mesh, moment_specs=moment_specs)
+        metrics = []
+        for batch in batches:
+            _, opt, met = step(placed, opt, batch)
+            metrics.append({k: float(met[k]) for k in TRAIN_CHECK_RTOL})
+        params, moments = _whole(placed, opt)
+        ratios = _state_ratios(metrics, params, moments, split)
+        vs_whole = _state_ratios(metrics, params, moments, whole)
+        del placed, opt, step, params, moments
+
+        # one step with the int8 compressor between the gradients and the update
+        placed, opt, moment_specs = _placed(cfg, base, mesh, zero1=mode != "fsdp")
+        init, compress = make_int8_ef_allreduce(mesh, shd.batch_axes(mesh))
+        opt["ef"] = init({k: torch.zeros(sh.shape, device=dev) for k, sh in placed.leaves.items()})
+        seen = {}
+
+        def hook(g, state):
+            seen["in"] = {k: v.clone() for k, v in g.items()}
+            seen["out"], state["ef"] = compress(g, state["ef"])
+            return seen["out"], state
+
+        _, opt, met = build_train_step(cfg, TRAIN_CHECK_OPT, mesh=mesh,
+                                       moment_specs=moment_specs, compressor=hook)(
+            placed, opt, batches[0])
+        ratios["grad"] = _fit_ratio(seen["in"], split["grads"], ATOL, RTOL)
+        vs_whole["grad"] = _fit_ratio(seen["in"], whole["grads"], ATOL, RTOL)
+        ratios["loss"] = abs(float(met["loss"]) - split["metrics"][0]["loss"]) / abs(
+            split["metrics"][0]["loss"]) / 1e-5
+        mine = copy.deepcopy(base)
+        mine_opt = init_opt_state(mine)
+        adamw_update(TRAIN_CHECK_OPT, mine, seen["out"], mine_opt)
+        params, moments = _whole(placed, opt)
+        same = all(torch.equal(params[k], p.detach().cpu()) for k, p in mine.named_parameters())
+        same &= all(torch.equal(moments[part][k], mine_opt[part][k].cpu())
+                    for part in ("m", "v") for k in moments[part])
+        bad = {k: round(v, 3) for k, v in ratios.items() if not v <= 1.0}
+        if bad or not same:
+            raise AssertionError(f"3i b) {mode}: against the single-device step at accum="
+                                 f"{n_ranks}, fractions of the bound above 1: {bad}; the "
+                                 f"compressed update a one-device adamw_update of its "
+                                 f"gradients bit for bit: {same}")
+        out[mode] = {"vs_split": ratios, "vs_whole": vs_whole}
+        fmt = lambda r: ", ".join(f"{k} {v:.3f}" for k, v in r.items())  # noqa: E731
+        log(f"3i b) ({smi}) {LM_ARCH} full width, {SHARD_CHECK_LAYERS} layers, float32, mesh "
+            f"{mesh.shape}, {mode}{'' if moment_specs else ' (moments beside the weights)'}: "
+            f"{TRAIN_CHECK_STEPS} steps (and one with the int8 compressor: the gradients it "
+            f"receives, the loss at rtol 1e-5) against the single-device step at accum="
+            f"{n_ranks}, worst fractions of 3h b)'s bounds: {fmt(ratios)}; the compressed "
+            f"update bit for bit a one-device adamw_update of its gradients; against the "
+            f"accum=1 step: {fmt(vs_whole)} (accum={n_ranks} itself: {fmt(floor)}) "
+            f"({sync_wall(t0):.2f} s)")
+        del placed, opt, params, moments, mine, mine_opt, seen
+    shd.set_mode("tp")
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_sharded_moe(dev, smi: str) -> dict:
+    """3i c): the ep and tp MoEs at published width, 1 layer, float32, on a
+    (2, 4) mesh of eight copies of the card against the same sharded
+    forward on a (2, 4) mesh over the host."""
+    shd.set_mode("tp")
+    cpu = torch.device("cpu")
+    model_axis = SHARD_MOE_MESH[1]
+    card_mesh = make_local_mesh(model=model_axis, devices=[dev] * int(np.prod(SHARD_MOE_MESH)))
+    host_mesh = make_local_mesh(model=model_axis, devices=[cpu] * int(np.prod(SHARD_MOE_MESH)))
+    out = {}
+    for arch in SHARD_MOES:
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(lm_registry.get_config(arch), n_layers=1,
+                                  param_dtype="float32", compute_dtype="float32")
+        model = lm_registry.init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                                        device=dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        shardings = {m: shd.param_shardings(lm_registry.param_specs(cfg), m)
+                     for m in (card_mesh, host_mesh)}
+        on_card = shd.place_params(model, shardings[card_mesh], cfg)
+        on_host = shd.place_params(model, shardings[host_mesh], cfg)
+        del model
+        torch.cuda.empty_cache()
+        toks = _lm_tokens(cfg, SHARD_MOE_B, SHARD_MOE_S, 5, dev)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            got = lm_registry.forward(on_card, cfg, {"tokens": toks}, mesh=card_mesh)
+            card_s = sync_wall(t0)
+            t0 = time.perf_counter()
+            want = lm_registry.forward(on_host, cfg, {"tokens": toks.cpu()}, mesh=host_mesh)
+            host_s = time.perf_counter() - t0
+        got = got.cpu()
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        if not rel < SHARD_MOE_REL:
+            raise AssertionError(f"3i c) {arch}: max |diff| / max |logit| {rel:.3e} "
+                                 f"(bound {SHARD_MOE_REL})")
+        elementwise = float(((got - want).abs() / (ATOL + RTOL * want.abs())).max())
+        peak = torch.cuda.max_memory_allocated()
+        log(f"3i c) ({smi}) {arch} ({cfg.moe_sharding}) at published width, 1 layer, float32, "
+            f"{n_params / 1e6:.1f}M params, mesh {card_mesh.shape} over "
+            f"{int(np.prod(SHARD_MOE_MESH))} copies of the card, batch {SHARD_MOE_B} x "
+            f"{SHARD_MOE_S}: the card's sharded forward against the host's: max |diff| / max "
+            f"|logit| {rel:.3e} (< {SHARD_MOE_REL}); {elementwise:.3f} of rtol {RTOL}, atol "
+            f"{ATOL} elementwise; max |logit| {float(want.abs().max()):.4f}; card "
+            f"{card_s:.2f} s (first call), host {host_s:.2f} s; max_memory_allocated "
+            f"{peak / 2**30:.2f} GiB")
+        out[arch] = {"rel": rel, "elementwise": elementwise, "card_s": card_s,
+                     "host_s": host_s, "peak": peak}
+        del on_card, on_host, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_sharded_path(dev, smi: str, unsharded: dict) -> dict:
+    """Phase 3i: a) smollm-360m trained on a (2, 2) mesh of copies of the
+    card, and launch.train --mesh local; b) the float32 sharded steps
+    against the single-device step; c) the sharded MoEs against the host."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("3i compares float32 training: TF32 matmuls must be off")
+    return {"train": lm_sharded_train(dev, smi, unsharded), "check": lm_sharded_check(dev, smi),
+            "moe": lm_sharded_moe(dev, smi)}
+
+
 def counted(path: str, required, drive):
     """Drive one path of phase 3 with every launch count set to 0 just
     before it, read the counts just after, and fail if a kernel of the path
@@ -2752,6 +3090,26 @@ def main() -> int:
         + ", ".join(f"{k} {v['rel']:.1e}" for k, v in trained["families"].items())
         + f"; example loss {trained['example']['first']:.3f} -> "
         f"{trained['example']['last']:.3f}; launches {train_counts}")
+
+    # phase 3i: the sharded language-model path, which has no FREYJA kernel
+    shard_run, shard_counts = counted("sharded lm", (),
+                                      lambda: lm_sharded_path(dev, smi, trained["train"]))
+    if any(shard_counts.values()):
+        raise AssertionError(f"the sharded lm path launched FREYJA kernels: {shard_counts}")
+    a = shard_run["train"]
+    log(f"sharded lm summary ({smi}): {LM_ARCH} bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ} on a "
+        f"(2, 2) mesh of copies of the card (tp, ZeRO-1): {a['steady_ms']:.3f} ms a step, "
+        f"{a['tok_s']:.1f} tokens/s, {a['trace']['kernels']} kernels a step, idle share "
+        f"{a['trace']['idle']:.1%}, max_memory_allocated {a['peak'] / 2**20:.1f} MiB; unsharded "
+        f"(3h) {t['steady_ms']:.3f} ms, {t['tok_s']:.1f} tokens/s, {t['trace']['kernels']} "
+        f"kernels, idle {t['trace']['idle']:.1%}, {t['peak'] / 2**20:.1f} MiB; launch.train "
+        f"--mesh local {a['launch_s']:.2f} s; float32 checks, worst fraction of the bound "
+        f"against the accum=2 step (m against accum=1) "
+        + ", ".join(f"{mode} {max(r['vs_split'].values()):.3f} ({r['vs_whole']['m']:.3f})"
+                    for mode, r in shard_run["check"].items() if mode != "accum_vs_whole")
+        + "; MoEs card vs host (max |diff| / max |logit|) " + ", ".join(
+            f"{k} {v['rel']:.2e}" for k, v in shard_run["moe"].items())
+        + f"; launches {shard_counts}")
 
     # phase 4: kernels at the main path's shapes
     t0 = time.perf_counter()

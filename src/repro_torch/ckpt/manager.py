@@ -15,7 +15,10 @@ back as bfloat16 bits wherever the like-tree leaf is a bfloat16 tensor; no
 in the JAX package's layout (``(params, opt_state)``, stacked blocks) by
 ``save_train_state``, and ``restore_train_state`` writes a checkpoint into
 the existing parameter and moment tensors on their device, so either
-package resumes from the other's files.
+package resumes from the other's files. A state placed on a mesh
+(``dist.sharding.ShardedModel``, ZeRO-1 moments) is gathered into the same
+layout to save, and a restore writes every shard from the full leaves, so
+a sharded run and an unsharded one resume each other.
 """
 from __future__ import annotations
 
@@ -28,6 +31,23 @@ import torch
 
 from repro_torch.convert import (lm_params_from_jax, lm_params_to_jax, opt_state_from_jax,
                                  opt_state_to_jax)
+from repro_torch.dist.collectives import Sharded, gather
+from repro_torch.dist.sharding import ShardedModel
+
+_HOST = torch.device("cpu")
+
+
+def _host(t) -> torch.Tensor:
+    """A leaf (a tensor or a ``Sharded`` one) whole on the host."""
+    if isinstance(t, Sharded):
+        with torch.no_grad():
+            return gather(t, _HOST)
+    return t.detach().cpu()
+
+
+def _params(model) -> dict:
+    """name -> tensor (or ``Sharded``) of a module or a ``ShardedModel``."""
+    return dict(model.leaves) if isinstance(model, ShardedModel) else model.state_dict()
 
 _BF16_BITS = np.dtype("V2")
 
@@ -131,9 +151,9 @@ class CheckpointManager:
     def save_train_state(self, step: int, model, opt_state: dict, cfg) -> str:
         """Save a language model's ``(params, opt_state)`` in the JAX
         package's layout (host copies, blocks stacked)."""
-        host = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-        opt = {"m": {k: v.cpu() for k, v in opt_state["m"].items()},
-               "v": {k: v.cpu() for k, v in opt_state["v"].items()},
+        host = {k: _host(v) for k, v in _params(model).items()}
+        opt = {"m": {k: _host(v) for k, v in opt_state["m"].items()},
+               "v": {k: _host(v) for k, v in opt_state["v"].items()},
                "step": opt_state["step"].cpu()}
         return self.save(step, (lm_params_to_jax(host, cfg), opt_state_to_jax(opt, cfg)))
 
@@ -145,16 +165,22 @@ class CheckpointManager:
             return lm_params_to_jax({k: torch.empty(v.shape, dtype=v.dtype, device="meta")
                                      for k, v in state.items()}, cfg)
 
-        like = (layout(model.state_dict()), {"m": layout(opt_state["m"]),
-                                             "v": layout(opt_state["v"]),
-                                             "step": opt_state["step"]})
+        like = (layout(_params(model)), {"m": layout(opt_state["m"]),
+                                         "v": layout(opt_state["v"]),
+                                         "step": opt_state["step"]})
         (params, opt), stored = self.restore(step, like)
         with torch.no_grad():
-            model.load_state_dict(lm_params_from_jax(params, cfg), strict=True)
+            if isinstance(model, ShardedModel):
+                model.load_(lm_params_from_jax(params, cfg))
+            else:
+                model.load_state_dict(lm_params_from_jax(params, cfg), strict=True)
             got = opt_state_from_jax(opt, cfg)
             for part in ("m", "v"):
                 for k, t in opt_state[part].items():
-                    t.copy_(got[part][k])
+                    if isinstance(t, Sharded):
+                        t.write_(got[part][k])
+                    else:
+                        t.copy_(got[part][k])
             opt_state["step"].copy_(got["step"])
         return stored
 

@@ -1,4 +1,4 @@
-"""Device meshes: the local, grid and replica builders.
+"""Device meshes: the production, local, grid and replica builders.
 
 The port of ``repro.launch.mesh``. A :class:`DeviceMesh` is what a JAX
 ``Mesh`` is to the planner and the sharded executor: an n-d array of devices
@@ -11,8 +11,6 @@ on it: one card (or the host, ``torch.device("cpu")``) stands in for several,
 as XLA's forced host-device count does for JAX on a CPU. The tests build
 8-device meshes over ``[torch.device("cpu")] * 8`` this way; it is a test
 affordance, not a deployment.
-
-``make_production_mesh`` (a 256-chip TPU pod) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -55,6 +53,21 @@ def _pool(devices) -> np.ndarray:
     for i, d in enumerate(flat):
         pool[i] = torch.device(d)
     return pool
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> DeviceMesh:
+    """The JAX package's production mesh: (16, 16) ``("data", "model")``, or
+    (2, 16, 16) ``("pod", "data", "model")`` with ``multi_pod``, over the
+    first 256 (512) devices of the pool (default: every visible card).
+    Fewer devices raise, as ``jax.make_mesh`` does."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    devs = _pool(devices)
+    need = int(np.prod(shape))
+    if devs.size < need:
+        raise ValueError(f"the {'multi-pod ' if multi_pod else ''}production mesh {shape} "
+                         f"needs {need} devices; {devs.size} are available")
+    return DeviceMesh(devs[:need].reshape(shape), axes)
 
 
 def make_local_mesh(model: int = 1, *, devices=None) -> DeviceMesh:

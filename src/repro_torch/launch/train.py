@@ -1,13 +1,20 @@
-"""End-to-end training driver, on one device.
+"""End-to-end training entry point.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --reduce --steps 200 --batch 8 --seq 256
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduce --steps 20
+  # every visible card as one (data, model=1) mesh, ZeRO-1 moments
+  PYTHONPATH=src python -m repro_torch.launch.train --mesh local --steps 20
 
 The port of ``repro.launch.train``, with the same flags and output, plus
 ``--device`` (default: the card). The weights are random, drawn from
-``torch.Generator(device).manual_seed(0)`` as in ``launch.serve``. Only ``--mesh none`` runs: the sharded meshes come with
-the port's dist slice.
+``torch.Generator(device).manual_seed(0)`` as in ``launch.serve``. A mesh
+runs ``repro.launch.train``'s sequence: ``param_shardings`` -> place the weights
+-> ``zero1_shardings`` -> ``init_opt_state`` -> ``build_train_step(mesh=,
+moment_specs=)``, each batch placed over the batch axes. ``--mesh local``
+is ``make_local_mesh()`` over the visible cards (over the host, a (1, 1)
+mesh, with ``--device cpu``); ``single``/``multi`` are the production
+meshes, which raise without 256 (512) devices.
 """
 from __future__ import annotations
 
@@ -18,6 +25,9 @@ import torch
 
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.collectives import place
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models import registry
 from repro_torch.train.loop import train_loop
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -45,9 +55,6 @@ def main(argv=None):
                     help="torch device to train on (default: the card)")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError(f"--mesh {args.mesh}: sharded training comes with the "
-                                  "port's dist slice; run with --mesh none")
     dev = resolve_device(args.device)
     cfg = registry.get_config(args.arch)
     if args.reduce:
@@ -64,17 +71,39 @@ def main(argv=None):
     print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
           f"active≈{cfg.active_param_count()/1e6:.1f}M")
 
+    mesh = None
+    pool = [dev] if dev.type == "cpu" else None          # the host, or every card
+    if args.mesh == "local":
+        mesh = make_local_mesh(devices=pool)
+    elif args.mesh in ("single", "multi"):
+        mesh = make_production_mesh(multi_pod=(args.mesh == "multi"), devices=pool)
+
     model = registry.init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
                                  device=dev)
+    moment_specs = moment_shardings = to_device = None
+    if mesh is not None:
+        specs = registry.param_specs(cfg)
+        shapes = shd.jax_layout(model, cfg)
+        model = shd.place_params(model, shd.param_shardings(specs, mesh), cfg)
+        moment_shardings = shd.zero1_shardings(specs, shapes, mesh)
+        moment_specs = shd.specs_of(moment_shardings)
+        batch_spec = (shd.batch_axes(mesh),)
+
+        def to_device(batch):
+            return {k: place(torch.from_numpy(v).long() if v.dtype.kind in "iu"
+                             else torch.from_numpy(v), mesh, batch_spec)
+                    for k, v in batch.items()}
+
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=min(50, args.steps // 10 + 1))
-    opt_state = init_opt_state(model)
-    step = build_train_step(cfg, opt_cfg, accum=args.accum)
+    opt_state = init_opt_state(model, moment_shardings, cfg=cfg)
+    step = build_train_step(cfg, opt_cfg, mesh=mesh, accum=args.accum,
+                            moment_specs=moment_specs)
 
     pipe = TokenPipeline(vocab=cfg.vocab, seq=args.seq, global_batch=args.batch)
     model, opt_state, hist = train_loop(
         step, model, opt_state, pipe, cfg=cfg, steps=args.steps,
-        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, to_device=to_device)
     if hist:
         print(f"first loss {hist[0][1]:.4f} -> last loss {hist[-1][1]:.4f}")
     return model, opt_state, hist

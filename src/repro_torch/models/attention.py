@@ -47,14 +47,26 @@ class Attention(nn.Module):
             self.k_norm = full((dh,), 1.0, dtype, device)
 
 
+def attention_specs(cfg, *, cross: bool = False) -> dict:
+    s = {"wq": ("embed", "heads"), "wk": ("embed", "kv"),
+         "wv": ("embed", "kv"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias and not cross:
+        s.update(bq=("heads",), bk=("kv",), bv=("kv",))
+    if cfg.qk_norm and not cross:
+        s.update(q_norm=("none",), k_norm=("none",))
+    return s
+
+
 def _q(p, cfg, xq, positions_q, *, rope: bool):
     b, sq, _ = xq.shape
     q = xq @ p.wq
-    if hasattr(p, "bq"):
-        q = q + p.bq
+    bq = getattr(p, "bq", None)
+    if bq is not None:
+        q = q + bq
     q = q.reshape(b, sq, cfg.n_heads, cfg.d_head)
-    if hasattr(p, "q_norm"):
-        q = rms_norm_vec(q, p.q_norm)
+    q_norm = getattr(p, "q_norm", None)
+    if q_norm is not None:
+        q = rms_norm_vec(q, q_norm)
     return apply_rope(q, positions_q, cfg.rope_theta) if rope else q
 
 
@@ -64,12 +76,14 @@ def _qkv(p, cfg, xq, xkv, positions_q, positions_kv, *, rope: bool = True):
     q = _q(p, cfg, xq, positions_q, rope=rope)
     k = xkv @ p.wk
     v = xkv @ p.wv
-    if hasattr(p, "bk"):
-        k, v = k + p.bk, v + p.bv
+    bk = getattr(p, "bk", None)
+    if bk is not None:
+        k, v = k + bk, v + p.bv
     k = k.reshape(b, skv, nk, dh)
     v = v.reshape(b, skv, nk, dh)
-    if hasattr(p, "k_norm"):
-        k = rms_norm_vec(k, p.k_norm)
+    k_norm = getattr(p, "k_norm", None)
+    if k_norm is not None:
+        k = rms_norm_vec(k, k_norm)
     if rope:
         k = apply_rope(k, positions_kv, cfg.rope_theta)
     return q, k, v

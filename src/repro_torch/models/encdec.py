@@ -8,17 +8,20 @@ to the encoder memory, LayerNorm + GELU as in Whisper.
 Serve path: ``encode`` runs once; ``precompute_cross_kv`` projects the
 memory into per-layer cross K/V; ``decode_step`` runs the decoder layers
 against a self-attention KV cache, written in place as in
-``transformer.decode_step``.
+``transformer.decode_step``. Over a mesh, ``forward`` and ``decode_step``
+split the batch rows over the data ranks as ``transformer``'s do.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (MLP, Embed, Norm, apply_mlp, apply_norm, dtype_of,
-                                       embed_tokens, lm_logits)
-from repro_torch.models.transformer import cached_attention, remat
+                                       embed_specs, embed_tokens, lm_logits, mlp_specs,
+                                       norm_specs)
+from repro_torch.models.transformer import cached_attention, remat, sharded_decode, stack_specs
 
 
 class EncBlock(nn.Module):
@@ -57,6 +60,16 @@ def init_encdec(cfg, gen: torch.Generator, device) -> EncDec:
     return EncDec(cfg, gen, device)
 
 
+def encdec_specs(cfg) -> dict:
+    """The JAX ``init_encdec``'s logical spec tree (layers stacked first)."""
+    enc = {"attn": attn.attention_specs(cfg), "mlp": mlp_specs(cfg), "ln1": norm_specs(cfg),
+           "ln2": norm_specs(cfg)}
+    dec = {**enc, "cross": attn.attention_specs(cfg, cross=True), "ln_cross": norm_specs(cfg)}
+    return {"embed": embed_specs(cfg), "enc_norm": norm_specs(cfg),
+            "final_norm": norm_specs(cfg), "enc_blocks": stack_specs(enc),
+            "dec_blocks": stack_specs(dec)}
+
+
 def _positions(b: int, s: int, device):
     return torch.arange(s, device=device)[None].expand(b, s)
 
@@ -85,8 +98,12 @@ def encode(params: EncDec, cfg, frames):
     return apply_norm(params.enc_norm, x, cfg.norm)
 
 
-def forward(params: EncDec, cfg, tokens, frames):
+def forward(params: EncDec, cfg, tokens, frames, *, mesh=None):
     """Teacher-forced forward -> logits (B, S_dec, V)."""
+    if shd.is_sharded(params, mesh):
+        dev = shd.rank_device(mesh, 0)
+        return shd.cat_ranks(shd.on_ranks(params, mesh, tokens.shape[0], lambda v, rows, d: forward(
+            v, cfg, tokens[rows].to(d), frames[rows].to(d))), 0, dev)
     memory = encode(params, cfg, frames)
     x = embed_tokens(params.embed, tokens, dtype_of(cfg.compute_dtype))
     b, s = tokens.shape
@@ -122,9 +139,12 @@ def precompute_cross_kv(params: EncDec, cfg, memory):
 
 
 @torch.no_grad()
-def decode_step(params: EncDec, cfg, tokens, caches):
+def decode_step(params: EncDec, cfg, tokens, caches, *, mesh=None):
     """One decoder token against the self KV cache (updated in place) and
     the precomputed cross K/V."""
+    if shd.is_sharded(params, mesh):
+        return sharded_decode(params, mesh, tokens, caches,
+                              lambda v, t, c: decode_step(v, cfg, t, c))
     x = embed_tokens(params.embed, tokens, dtype_of(cfg.compute_dtype))
     kv, cross = caches["kv"], caches["cross"]
     for i, pl in enumerate(params.dec_blocks):

@@ -6,8 +6,11 @@ the JAX package's leaf names (``embedding``, ``lm_head``, ``scale``,
 ``w_gate`` ...), so a JAX parameter tree maps onto a ``state_dict`` key for
 key (``convert.lm_params_from_jax``). The modules only hold parameters;
 the computation is plain functions on tensors, as in JAX. The logical-axis
-sharding specs of the JAX init functions belong to the ``dist`` slice and
-are not built here.
+specs the JAX init functions return beside their parameters come from the
+``*_specs(cfg)`` functions (``registry.param_specs`` assembles them). The
+model functions read a parameter by attribute and test for an optional
+one with ``getattr(p, name, None)``, so a sharded model's view
+(``dist.sharding.ShardedModel.view``) stands in for a module.
 """
 from __future__ import annotations
 
@@ -62,6 +65,13 @@ class Norm(nn.Module):
             self.bias = full((cfg.d_model,), 0.0, dtype, device)
 
 
+def norm_specs(cfg) -> dict:
+    s = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        s["bias"] = ("embed",)
+    return s
+
+
 def apply_norm(p: Norm, x, kind: str, eps: float = 1e-5):
     xf = x.float()
     if kind == "rmsnorm":
@@ -105,9 +115,17 @@ class MLP(nn.Module):
             self.w_down = dense_init(gen, (f, d), dtype, device)
 
 
+def mlp_specs(cfg) -> dict:
+    if cfg.act == "silu":
+        return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                "w_down": ("mlp", "embed")}
+    return {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+
+
 def apply_mlp(p: MLP, x, act: str):
-    if hasattr(p, "w_gate"):
-        h = F.silu(x @ p.w_gate) * (x @ p.w_up)
+    w_gate = getattr(p, "w_gate", None)
+    if w_gate is not None:
+        h = F.silu(x @ w_gate) * (x @ p.w_up)
     else:
         h = gelu(x @ p.w_up)
     return h @ p.w_down
@@ -125,12 +143,20 @@ class Embed(nn.Module):
             self.lm_head = dense_init(gen, (cfg.d_model, cfg.vocab), dtype, device)
 
 
+def embed_specs(cfg) -> dict:
+    s = {"embedding": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ("embed", "vocab")
+    return s
+
+
 def embed_tokens(p: Embed, tokens, compute_dtype):
     return p.embedding[tokens].to(compute_dtype)
 
 
 def lm_logits(p: Embed, x):
-    w = p.lm_head if hasattr(p, "lm_head") else p.embedding.T
+    w = getattr(p, "lm_head", None)
+    w = p.embedding.T if w is None else w
     return (x @ w).float()
 
 

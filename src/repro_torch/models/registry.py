@@ -2,6 +2,8 @@
 
 The port of ``repro.models.registry``. ``input_specs`` (the dry run's
 shape stand-ins) comes with the port's dry run, in a later slice.
+``param_specs`` gives the logical-axis spec tree the JAX package's
+``init_params`` returns beside its parameters.
 """
 from __future__ import annotations
 
@@ -67,16 +69,24 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator | None = None, de
     return transformer.init_lm(cfg, gen, dev)
 
 
-def forward(params, cfg: ArchConfig, batch: dict):
+def param_specs(cfg: ArchConfig) -> dict:
+    """The logical spec tree of ``cfg``'s parameters, in the nested layout
+    of ``convert.lm_params_to_jax`` (stacked ``layers`` axis first)."""
     if is_encdec(cfg):
-        return encdec.forward(params, cfg, batch["tokens"], batch["frames"])
-    return transformer.forward(params, cfg, batch["tokens"], img=batch.get("img"))
+        return encdec.encdec_specs(cfg)
+    return transformer.lm_specs(cfg)
 
 
-def decode_step(params, cfg: ArchConfig, batch: dict, caches):
+def forward(params, cfg: ArchConfig, batch: dict, *, mesh=None):
     if is_encdec(cfg):
-        return encdec.decode_step(params, cfg, batch["tokens"], caches)
-    return transformer.decode_step(params, cfg, batch["tokens"], caches)
+        return encdec.forward(params, cfg, batch["tokens"], batch["frames"], mesh=mesh)
+    return transformer.forward(params, cfg, batch["tokens"], img=batch.get("img"), mesh=mesh)
+
+
+def decode_step(params, cfg: ArchConfig, batch: dict, caches, *, mesh=None):
+    if is_encdec(cfg):
+        return encdec.decode_step(params, cfg, batch["tokens"], caches, mesh=mesh)
+    return transformer.decode_step(params, cfg, batch["tokens"], caches, mesh=mesh)
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int, *, device=None):

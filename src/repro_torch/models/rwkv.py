@@ -53,6 +53,15 @@ class RWKVBlock(nn.Module):
         self.cr = dense_init(gen, (d, d), dtype, device)
 
 
+def rwkv_specs(cfg) -> dict:
+    return {"mu": ("none", "embed"), "wr": ("embed", "heads"), "wk": ("embed", "heads"),
+            "wv": ("embed", "heads"), "wg": ("embed", "heads"), "wo": ("heads", "embed"),
+            "w0": ("embed",), "w_lora_a": ("embed", "none"), "w_lora_b": ("none", "embed"),
+            "u": ("embed",), "ln_scale": ("embed",),
+            "mu_c": ("none", "embed"), "ck": ("embed", "mlp"), "cv": ("mlp", "embed"),
+            "cr": ("embed", "heads")}
+
+
 def _token_shift(x, prev):
     """prev: (B, 1, d) last token of previous segment (zeros at start)."""
     return torch.cat([prev, x[:, :-1]], dim=1)

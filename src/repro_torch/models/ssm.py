@@ -45,6 +45,12 @@ class Mamba2(nn.Module):
         self.out_proj = dense_init(gen, (din, d), dtype, device)
 
 
+def mamba2_specs(cfg) -> dict:
+    return {"in_proj": ("embed", "inner"), "conv_w": ("none", "inner"),
+            "A_log": ("none",), "D": ("none",), "dt_bias": ("none",),
+            "norm_scale": ("inner",), "out_proj": ("inner", "embed")}
+
+
 def _split_proj(cfg, zxbcdt):
     din = d_inner_of(cfg)
     n = cfg.ssm_state

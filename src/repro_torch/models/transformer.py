@@ -22,6 +22,14 @@ Families:
 
 VLM: ``img`` stub embeddings replace the first ``n_patches`` token
 embeddings (the CLIP frontend is out of scope).
+
+Over a mesh (``mesh=``, the parameters placed by
+``dist.sharding.place_params``), ``forward``, ``forward_with_caches`` and
+``decode_step`` split the batch rows over the data ranks (contiguously,
+when they divide; else every row runs on the first rank) and run each
+rank's rows on its device with the parameters gathered there as they are
+read; the outputs (and caches) come back joined on the first rank's
+device. The MoE keeps JAX's ``shard_map`` dispatch (``_moe_apply``).
 """
 from __future__ import annotations
 
@@ -31,12 +39,15 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.collectives import gather, region_of
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (MLP, Embed, Norm, apply_mlp, apply_norm, dtype_of,
-                                       embed_tokens, lm_logits)
+                                       embed_specs, embed_tokens, lm_logits, mlp_specs,
+                                       norm_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -84,28 +95,104 @@ def init_lm(cfg, gen: torch.Generator, device) -> LM:
     return LM(cfg, gen, device)
 
 
+def stack_specs(s: dict) -> dict:
+    """A block's logical specs with the stacked ``layers`` axis first."""
+    return {k: stack_specs(v) if isinstance(v, dict) else ("layers",) + v
+            for k, v in s.items()}
+
+
+def dense_block_specs(cfg) -> dict:
+    return {"attn": attn.attention_specs(cfg),
+            "mlp": moe_mod.moe_specs(cfg) if cfg.family == "moe" else mlp_specs(cfg),
+            "ln1": norm_specs(cfg), "ln2": norm_specs(cfg)}
+
+
+def lm_specs(cfg) -> dict:
+    """The JAX ``init_lm``'s logical spec tree (layers stacked first)."""
+    specs = {"embed": embed_specs(cfg), "final_norm": norm_specs(cfg)}
+    if cfg.family in ("dense", "moe", "vlm"):
+        specs["blocks"] = stack_specs(dense_block_specs(cfg))
+    elif cfg.family == "ssm":
+        specs["blocks"] = stack_specs(rwkv_mod.rwkv_specs(cfg))
+    elif cfg.family == "hybrid":
+        specs["blocks"] = stack_specs(ssm_mod.mamba2_specs(cfg))
+        specs["shared"] = dense_block_specs(dataclasses.replace(cfg, family="dense"))
+        specs["blocks_norm"] = stack_specs(norm_specs(cfg))
+        specs["shared_norm"] = norm_specs(cfg)
+    else:
+        raise ValueError(cfg.family)
+    return specs
+
+
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _moe_apply(pm, cfg, x):
+def _moe_apply(pm, cfg, x, mesh=None):
+    """The MoE over (B, S, d) activations. Over a mesh, as the JAX package's
+    ``shard_map``: the B·S tokens split into one contiguous chunk a data
+    rank when they divide (otherwise every rank takes them all, so the
+    first rank's result stands for all), each chunk dispatched on its own
+    (its drops are its own) across its row's model ranks; ``dp`` mode takes
+    the local path with each row's full weights. ``pm`` is then a view of
+    placed parameters (``ShardedModel.view``): a rank's view covers exactly
+    its own chunk."""
     b, s, d = x.shape
-    return moe_mod.moe_ffn_local(pm, cfg, x.reshape(b * s, d)).reshape(b, s, d)
+    x2 = x.reshape(b * s, d)
+    if mesh is None:
+        return moe_mod.moe_ffn_local(pm, cfg, x2).reshape(b, s, d)
+    n = shd.n_data_ranks(mesh)
+    t = b * s
+    if pm.data_index is not None:
+        chunks = [(slice(0, t), pm.data_index)]
+    elif t % n == 0 and t >= n:
+        chunks = [(slice(i * (t // n), (i + 1) * (t // n)), i) for i in range(n)]
+    else:                               # tiny decode batches replicate tokens
+        chunks = [(slice(0, t), 0)]
+    # dp mode replicates expert weights: no model-axis collective
+    maxis = "model" if (shd.get_mode() != "dp" and "model" in mesh.axis_names) else None
+    specs = moe_mod.moe_specs(cfg)
+    outs = []
+    for rows, c in chunks:
+        dev = shd.rank_device(mesh, c)
+        if maxis is None:
+            p = _MoEWeights(pm, specs, mesh, c, None)
+            y = moe_mod.moe_ffn_local(p, cfg, x2[rows].to(dev))
+        else:
+            ranks = [_MoEWeights(pm, specs, mesh, c, m) for m in range(mesh.shape["model"])]
+            y = moe_mod.moe_ffn_local(ranks, cfg, x2[rows].to(dev), model_axis=maxis)
+        outs.append(y.to(x.device))
+    return torch.cat(outs).reshape(b, s, d)
 
 
-def _ffn(pl, cfg, h):
+class _MoEWeights:
+    """One model rank's MoE weights in data row ``c``: each leaf's block
+    under ``spec_of(moe_specs)`` (all of it with ``model=None``), gathered
+    onto that rank's device from the placed leaves."""
+
+    def __init__(self, pm, specs, mesh, c, model):
+        pos = shd.position(mesh, c, model=model or 0)
+        prefer = {**shd.data_row(mesh, c), **({} if model is None else {"model": model})}
+        for name, logical in specs.items():
+            leaf = pm.leaf(name)
+            region = (None if model is None
+                      else region_of(mesh, shd.spec_of(logical, mesh), leaf.shape, pos))
+            setattr(self, name, gather(leaf, mesh.devices[pos], region, prefer=prefer))
+
+
+def _ffn(pl, cfg, h, mesh=None):
     if cfg.family == "moe":
-        return _moe_apply(pl.mlp, cfg, h)
+        return _moe_apply(pl.mlp, cfg, h, mesh)
     return apply_mlp(pl.mlp, h, cfg.act)
 
 
-def _dense_block_fwd(pl, cfg, x, positions, *, return_kv: bool = False):
+def _dense_block_fwd(pl, cfg, x, positions, mesh=None, *, return_kv: bool = False):
     h = apply_norm(pl.ln1, x, cfg.norm)
     h = attn.attention_train(pl.attn, cfg, h, positions, return_kv=return_kv)
     if return_kv:
         h, kv = h
     x = x + h
-    x = x + _ffn(pl, cfg, apply_norm(pl.ln2, x, cfg.norm))
+    x = x + _ffn(pl, cfg, apply_norm(pl.ln2, x, cfg.norm), mesh)
     return (x, kv) if return_kv else x
 
 
@@ -155,12 +242,16 @@ def _mamba_block(pl, norm, cfg, x):
     return x + ssm_mod.mamba2_forward(pl, cfg, apply_norm(norm, x, cfg.norm))
 
 
-def forward(params: LM, cfg, tokens, *, img=None):
+def forward(params: LM, cfg, tokens, *, img=None, mesh=None):
     """Training/prefill forward. tokens (B, S) -> logits (B, S, V) f32."""
+    if shd.is_sharded(params, mesh):
+        dev = shd.rank_device(mesh, 0)
+        return shd.cat_ranks(shd.on_ranks(params, mesh, tokens.shape[0], lambda v, rows, d: forward(
+            v, cfg, tokens[rows].to(d), img=shd.rows_to(img, rows, d), mesh=mesh)), 0, dev)
     x, positions = _embed_inputs(params, cfg, tokens, img)
     if cfg.family in ("dense", "moe", "vlm"):
         for pl in params.blocks:
-            x = remat(cfg, _dense_block_fwd, pl, cfg, x, positions)
+            x = remat(cfg, _dense_block_fwd, pl, cfg, x, positions, mesh)
     elif cfg.family == "ssm":
         for pl in params.blocks:
             x = remat(cfg, _rwkv_block, pl, cfg, x)
@@ -214,8 +305,14 @@ def _no_quantized_hybrid(cfg):
 
 
 @torch.no_grad()
-def forward_with_caches(params: LM, cfg, tokens, cache_size: int, *, img=None):
+def forward_with_caches(params: LM, cfg, tokens, cache_size: int, *, img=None, mesh=None):
     """Prefill: returns (logits (B, S, V), decode caches with len = S)."""
+    if shd.is_sharded(params, mesh):
+        dev = shd.rank_device(mesh, 0)
+        parts = shd.on_ranks(params, mesh, tokens.shape[0], lambda v, rows, d: forward_with_caches(
+            v, cfg, tokens[rows].to(d), cache_size, img=shd.rows_to(img, rows, d), mesh=mesh))
+        return (shd.cat_ranks([p[0] for p in parts], 0, dev),
+                shd.cat_ranks([p[1] for p in parts], 1, dev))
     _no_quantized_hybrid(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     x, positions = _embed_inputs(params, cfg, tokens, img)
@@ -226,7 +323,7 @@ def forward_with_caches(params: LM, cfg, tokens, cache_size: int, *, img=None):
             else min(cache_size, cfg.sliding_window)
         kvs = []
         for pl in params.blocks:
-            x, (k, v) = _dense_block_fwd(pl, cfg, x, positions, return_kv=True)
+            x, (k, v) = _dense_block_fwd(pl, cfg, x, positions, mesh, return_kv=True)
             kvs.append(_kv_to_cache(cfg, k.to(cdt), v.to(cdt), size))
         caches = {"kv": _stack(kvs), "len": s, "offset": 0}
     elif cfg.family == "ssm":
@@ -303,9 +400,12 @@ def cached_attention(p, cfg, h, kv: dict, i: int, caches: dict):
 
 
 @torch.no_grad()
-def decode_step(params: LM, cfg, tokens, caches):
+def decode_step(params: LM, cfg, tokens, caches, *, mesh=None):
     """tokens (B, 1) -> (logits (B, 1, V), caches advanced by one token,
     updated in place)."""
+    if shd.is_sharded(params, mesh):
+        return sharded_decode(params, mesh, tokens, caches, lambda v, t, c: decode_step(
+            v, cfg, t, c, mesh=mesh))
     cdt = dtype_of(cfg.compute_dtype)
     x = embed_tokens(params.embed, tokens, cdt)
 
@@ -314,7 +414,7 @@ def decode_step(params: LM, cfg, tokens, caches):
         for i, pl in enumerate(params.blocks):
             h = apply_norm(pl.ln1, x, cfg.norm)
             x = x + cached_attention(pl.attn, cfg, h, kv, i, caches)
-            x = x + _ffn(pl, cfg, apply_norm(pl.ln2, x, cfg.norm))
+            x = x + _ffn(pl, cfg, apply_norm(pl.ln2, x, cfg.norm), mesh)
         new = {"kv": kv, "len": caches["len"] + 1, "offset": caches["offset"]}
     elif cfg.family == "ssm":
         st = caches["rwkv"]
@@ -341,3 +441,18 @@ def decode_step(params: LM, cfg, tokens, caches):
 
     x = apply_norm(params.final_norm, x, cfg.norm)
     return lm_logits(params.embed, x), new
+
+
+def sharded_decode(params, mesh, tokens, caches, step):
+    """One decode ``step(view, tokens, caches)`` over the data ranks: each
+    rank's rows of the stacked caches (batch on dim 1) advanced on its
+    device, in place; the logits joined on the first rank's device."""
+    def one(view, rows, dev):
+        mine, back = shd.cache_rows(caches, rows, dev)
+        logits, _ = step(view, tokens[rows].to(dev), mine)
+        shd.write_back(back, rows)
+        return logits
+
+    dev = shd.rank_device(mesh, 0)
+    logits = shd.cat_ranks(shd.on_ranks(params, mesh, tokens.shape[0], one), 0, dev)
+    return logits, {**caches, "len": caches["len"] + 1}

@@ -1,6 +1,8 @@
 """Fault-tolerant training loop: checkpoint/restart, straggler monitor.
 
-The port of ``repro.train.loop``, on one device. The loop is deliberately
+The port of ``repro.train.loop``, on one device or a mesh (a
+``dist.sharding.ShardedModel``, its batch placed by ``to_device``). The
+loop is deliberately
 boring: deterministic data (batch = f(seed, step)), a checkpoint every N
 steps through the atomic ``CheckpointManager`` (the JAX package's file
 format, so either package resumes the other's run), resume from the latest
@@ -30,6 +32,7 @@ import time
 import torch
 
 from repro_torch.ckpt.manager import CheckpointManager
+from repro_torch.dist.sharding import ShardedModel
 
 
 @dataclasses.dataclass
@@ -72,9 +75,17 @@ def _sigint_held():
         raise KeyboardInterrupt
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _devices(model) -> list[torch.device]:
+    """The devices a model's parameters lie on (the first one first)."""
+    if isinstance(model, ShardedModel):
+        return list(dict.fromkeys(model.mesh.devices.flat))
+    return [next(model.parameters()).device]
+
+
+def _sync(devices) -> None:
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def train_loop(train_step, model, opt_state, pipeline, *, cfg, steps: int,
@@ -83,12 +94,14 @@ def train_loop(train_step, model, opt_state, pipeline, *, cfg, steps: int,
     """Runs ``steps`` optimizer steps of ``train_step`` (``build_train_step``)
     on ``model`` (``cfg``'s architecture) with checkpoint/resume; the
     parameters and ``opt_state`` are updated in place. ``to_device`` maps a
-    numpy batch onto the model's device (default: ``batch_to_device``).
-    Returns (model, opt_state, history of (step, loss, seconds))."""
-    device = next(model.parameters()).device
+    numpy batch onto the model's device (default: ``batch_to_device``; a
+    model on a mesh takes it to its first data rank's device unless
+    ``to_device`` places it over the mesh). Returns (model, opt_state,
+    history of (step, loss, seconds))."""
+    devices = _devices(model)
     if to_device is None:
         def to_device(batch):
-            return batch_to_device(batch, device)
+            return batch_to_device(batch, devices[0])
     mgr = CheckpointManager(ckpt_dir)
     start = 0
     latest = mgr.latest_step()
@@ -105,7 +118,7 @@ def train_loop(train_step, model, opt_state, pipeline, *, cfg, steps: int,
             t0 = time.perf_counter()
             with _sigint_held():
                 model, opt_state, metrics = train_step(model, opt_state, batch)
-                _sync(device)
+                _sync(devices)
             dt = time.perf_counter() - t0
             slow = monitor.observe(dt)
             if step % log_every == 0 or slow:

@@ -81,6 +81,9 @@ _TRAIN_MODULES = {"repro_torch.train", "repro_torch.train.optimizer",
                   "repro_torch.train.trainer", "repro_torch.train.loop", "repro_torch.ckpt",
                   "repro_torch.ckpt.manager", "repro_torch.launch.train",
                   "repro_torch.convert", "repro_torch.data.pipeline"}
+# modules of the language-model sharding
+_DIST_MODULES = {"repro_torch.dist", "repro_torch.dist.sharding",
+                 "repro_torch.dist.collectives", "repro_torch.dist.compression"}
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 
 
@@ -97,6 +100,7 @@ def test_port_imports_without_jax_or_repro():
     assert _GRID_MODULES <= names, _GRID_MODULES - names
     assert _LM_MODULES <= names, _LM_MODULES - names
     assert _TRAIN_MODULES <= names, _TRAIN_MODULES - names
+    assert _DIST_MODULES <= names, _DIST_MODULES - names
 
 
 _EACH_FIRST = """
@@ -149,7 +153,7 @@ def _public(*modules) -> set[str]:
 # names it exports (None: the JAX package's own ``__all__``)
 _PACKAGES = {"core": None, "exec": None, "data": ("data.pipeline",),
              "train": ("train.optimizer", "train.trainer", "train.loop"),
-             "ckpt": ("ckpt.manager",)}
+             "ckpt": ("ckpt.manager",), "dist": ("dist.sharding", "dist.compression")}
 
 
 @pytest.mark.parametrize("pkg", sorted(_PACKAGES))

@@ -372,8 +372,8 @@ def test_launch_train_runs_and_resumes(tmp_path):
     (_, opt, _), out = _main(argv + ["--steps", "6"])
     assert "[resume] restored checkpoint @ step 4" in out
     assert int(opt["step"]) == 6
-    with pytest.raises(NotImplementedError, match="dist slice"):
-        launch_train.main(argv + ["--mesh", "local"])
+    with pytest.raises(ValueError, match="needs 256 devices"):
+        launch_train.main(argv + ["--mesh", "single"])
 
 
 def test_launch_train_module_runs_on_the_host(tmp_path):

@@ -12,7 +12,7 @@ Phases:
    and the three kernels that stage an ensemble in a constant bank
    (``fused_score``, ``fused_score_q``, ``gbdt_infer``) under two host
    threads calling them with two different ensembles;
-3. eight paths at real size, through the port's own entry points, each
+3. ten paths at real size, through the port's own entry points, each
    with the launch counts set to 0 just before it and read just after it:
    a. the discovery query: train the join-quality model (T=50, D=5) on the
       default lake, ingest a 100k-column x 256-row scaled lake (profiles +
@@ -128,6 +128,23 @@ Phases:
       (2, 4) mesh: the sharded forward on the card against the same call
       on a host mesh (max |diff| / max |logit| < 1e-5, the sharded-MoE
       bound of tests/test_torch_dist.py), at 2 x 64 tokens.
+   j. the dry run beside the card (``launch.dryrun`` on ``meta``, then the
+      same cell for real): (a) the paper's cell, ``freyja-discovery``
+      (16,777,216 columns, 64 queries, k=100) with a 4 x 1 mesh, then
+      ``build_sharded_pipeline`` over ``make_grid_mesh(1, 4)`` of four
+      copies of the card, the profiles drawn on the card from a seeded
+      generator: the placement within 1% of four times the cell's argument
+      bytes, the ids equal to the plain pipeline's (chunks of 1M columns
+      merged by ``topk_stable``) up to exact ties, the wall and
+      ``max_memory_allocated`` beside the cell's peak, one profiled call;
+      (b), (c) rwkv6-3b and zamba2-2.7b at ``long_500k`` with a 1 x 1
+      mesh, then the full-width model and a 524,288-token cache (``len``
+      524,287) on the card: the placement within 1% of the argument bytes,
+      one ``decode_step`` by CUDA events beside the cell's ``bound_s``,
+      ``max_memory_allocated`` beside its peak, one profiled step; they
+      launch no FREYJA kernel (the run fails if one does); (d) the test cell (whisper-base, ``decode_32k``, the single mesh)
+      through the dry run on the card's host, its argument bytes the JAX dry
+      run's 408,764,460.
    Each plan's ids are held against a plain pipeline over the same
    candidates (plain probes and plain scorers); the quantized top-10 must
    overlap the float32 one by at least 0.99. The model path's distances
@@ -180,9 +197,12 @@ from repro_torch.core.predictor import (POSITIVE_LABEL,           # noqa: E402
                                         predict_scores, train_quality_model)
 from repro_torch.core.profiles import lake_profiles, profile_lake  # noqa: E402
 from repro_torch.device import from_bits, hashes_to_torch, to_bits  # noqa: E402
+from repro_torch.configs import freyja_discovery as FD            # noqa: E402
 from repro_torch.exec import stages                               # noqa: E402
+from repro_torch.exec.sharded import (build_sharded_pipeline,     # noqa: E402
+                                      place_sharded_corpus)
 from repro_torch.exec.executor import (RESCORE_MULT, Executor,    # noqa: E402
-                                       pad_rows, pad_topk)
+                                       _live_ids, pad_rows, pad_topk)
 from repro_torch.exec.plan import (DEFAULT_COLUMN_BUCKETS, Planner,  # noqa: E402
                                    PlannerConfig, QueryPlan)
 from repro_torch.kernels import _build, ops, ref                  # noqa: E402
@@ -201,7 +221,9 @@ from repro_torch.dist.collectives import gather                   # noqa: E402
 from repro_torch.dist.compression import make_int8_ef_allreduce   # noqa: E402
 from repro_torch.launch import serve as launch_serve              # noqa: E402
 from repro_torch.launch import train as launch_train              # noqa: E402
+from repro_torch.launch import dryrun                             # noqa: E402
 from repro_torch.launch.bench_scorer import launch_floor          # noqa: E402
+from repro_torch.launch.dryrun import FREYJA_DEPTH, FREYJA_TREES  # noqa: E402
 from repro_torch.launch.mesh import make_grid_mesh, make_local_mesh  # noqa: E402
 from repro_torch.models import encdec as lm_encdec                # noqa: E402
 from repro_torch.models import registry as lm_registry            # noqa: E402
@@ -336,6 +358,19 @@ SHARD_MOE_MESH, SHARD_MOE_B, SHARD_MOE_S = (2, 4), 2, 64
 # rtol 1e-4 / atol 1e-5 of 3g d) was reached 1.262x by Mixtral, max |diff|
 # 1.52e-5 of max |logit| ~5, on an H100 80GB HBM3)
 SHARD_MOE_REL = 1e-5
+# the dry run beside the card (3j): a) the paper's cell over four copies of
+# the card (its 16M profiles drawn there: a seeded generator, word hashes
+# from a small vocabulary so that frequent words overlap, tables of 8
+# columns), held against the plain pipeline in chunks of 1M columns (whole,
+# its (64, 16M, 23) float32 features would take ~94 GB); b), c) the
+# sub-quadratic models' long_500k cells on one card; every placement within
+# 1% of the dry run's argument bytes; d) the test cell's argument bytes, the
+# JAX dry run's figure
+DRY_SHARDS, DRY_SEED, DRY_VOCAB, DRY_TABLE_WIDTH = 4, 23, 4096, 8
+DRY_PLAIN_CHUNK = 1 << 20
+DRY_LONG = ("rwkv6-3b", "zamba2-2.7b")
+DRY_ARG_RTOL = 0.01
+DRY_TEST_CELL_ARGUMENT_BYTES = 408_764_460
 # the caching allocator hands out a cached block whole when splitting it
 # would leave under 1 MiB, so a freed tensor may release up to that much
 # more than its size rounded to 512 bytes
@@ -2967,6 +3002,209 @@ def lm_sharded_path(dev, smi: str, unsharded: dict) -> dict:
             "moe": lm_sharded_moe(dev, smi)}
 
 
+# ---------------------------------------------------------------------------
+# phase 3j: the dry run beside the card
+# ---------------------------------------------------------------------------
+
+def _dry_cell(arch: str, shape: str, override: str | None, out_dir: str) -> dict:
+    """One cell of the port's dry run (``launch.dryrun.run_cell``); it must
+    end ``ok``."""
+    r = dryrun.run_cell(arch, shape, "single", mesh_override=override, out_dir=out_dir)
+    if r["status"] != "ok":
+        raise AssertionError(f"dry run of {arch} {shape}: {r['status']} {r.get('error')}")
+    return r
+
+
+def _fits_placement(name: str, predicted: int, measured: int) -> float:
+    """The dry run's argument bytes against the bytes the placement took on
+    the card; fails beyond ``DRY_ARG_RTOL``."""
+    rel = abs(measured - predicted) / predicted
+    if rel > DRY_ARG_RTOL:
+        raise AssertionError(f"{name}: the dry run's argument bytes {predicted} are "
+                             f"{rel:.2%} from the placement's {measured}")
+    return rel
+
+
+def _held_bytes(tensors) -> int:
+    """Bytes of the distinct storages behind ``tensors``: what holding them
+    keeps on the card, each storage once however many views share it."""
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}.values())
+
+
+def plain_discovery(z, w, cids, tids, zq, wq, tq, qid, g, k: int, chunk: int):
+    """The ``all`` pipeline with the plain scorer over column chunks of at
+    most ``chunk`` (the unchunked plain scorer would hold (Q, N, 23) float32
+    features), each chunk's stable top-k merged by ``topk_stable``: the
+    global top-k, ties to the lower column id."""
+    scores, ids = [], []
+    for lo in range(0, z.shape[0], chunk):
+        sl = slice(lo, lo + chunk)
+        s = ref.fused_score_ref(zq, wq, z[sl], w[sl], *g)
+        s = torch.where(stages.exclusion_mask(cids[sl], tids[sl], tq, qid), float("-inf"), s)
+        sc, i = stages.merge_topk(s, cids[sl], k)
+        scores.append(sc)
+        ids.append(i)
+    sc, pos = stages.topk_stable(torch.cat(scores, 1), k)
+    return sc, torch.gather(torch.cat(ids, 1), 1, pos)
+
+
+def dry_discovery(dev, smi: str, out_dir: str) -> dict:
+    """3j a): the paper's cell (16M columns, 64 queries, k=100) through the
+    dry run with a 4 x 1 mesh, then for real: ``build_sharded_pipeline`` over
+    ``make_grid_mesh(1, 4)`` of four copies of the card, the profiles drawn
+    on the card from a seeded generator in the dtypes of the executor's
+    ingest. What the placement holds must come within ``DRY_ARG_RTOL`` of
+    four times the cell's argument bytes, and the ids must equal the
+    chunked plain pipeline's up to exact ties."""
+    r = _dry_cell("freyja-discovery", "query", f"{DRY_SHARDS}x1", out_dir)
+    card = _card(dev)
+    n, q, k = FD.N_COLUMNS, FD.N_QUERIES, FD.TOP_K
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(card)
+    gen = torch.Generator(card).manual_seed(DRY_SEED)
+    # the rows as ``Executor.__init__`` makes them: float32 profiles, the
+    # word hashes widened from their int32 bit-views by ``from_bits``, int32
+    # table ids widened to int64, the column ids of ``_live_ids``
+    z = torch.randn((n, FT.F_NUM), generator=gen, device=card)
+    w = from_bits(torch.randint(0, DRY_VOCAB, (n, FT.F_WORDS), generator=gen, device=card,
+                                dtype=torch.int32))
+    cids = _live_ids(n, n, card)
+    tids = (torch.arange(n, dtype=torch.int32, device=card) // DRY_TABLE_WIDTH).to(torch.int64)
+    qid = torch.randperm(n, generator=gen, device=card)[:q].clone()   # frees the permutation
+    zq, wq, tq = z[qid], w[qid], tids[qid]
+    g = _random_gbdt(np.random.default_rng(DRY_SEED), FREYJA_TREES, FREYJA_DEPTH, card)
+    mesh = make_grid_mesh(1, DRY_SHARDS, devices=[card] * DRY_SHARDS)
+    corpus = place_sharded_corpus(mesh, ("data",), dict(z=z, w=w, cids=cids, tids=tids))
+    # what the placement holds: the storages behind its shards (on one card
+    # views of the rows above, unless it padded or converted them), the
+    # queries and the ensemble (once here; the dry run counts them on each
+    # of the four devices, 0.002% of the total)
+    placed = _held_bytes([t for shard in corpus["shards"].values() for t in shard.values()]
+                         + [zq, wq, tq, qid] + [t for t in g if torch.is_tensor(t)])
+    predicted = DRY_SHARDS * r["memory"]["argument_bytes"]
+    rel = _fits_placement("3j a)", predicted, placed)
+    fn = build_sharded_pipeline(mesh, candidates="all", k=k)
+    torch.cuda.reset_peak_memory_stats(card)
+    t0 = time.perf_counter()
+    sc, ids, n_scored = fn(corpus, {card: g}, zq, wq, tq, qid)
+    first = sync_wall(t0)
+    t0 = time.perf_counter()
+    sc, ids, n_scored = fn(corpus, {card: g}, zq, wq, tq, qid)
+    wall = sync_wall(t0)
+    peak = torch.cuda.max_memory_allocated(card) - before
+    trace = _trace_step("3j a) discovery cell", lambda: fn(corpus, {card: g}, zq, wq, tq, qid),
+                        wall * 1e3, smi)
+    if not torch.equal(n_scored, torch.full_like(n_scored, n)):
+        raise AssertionError(f"3j a): n_scored {n_scored.unique().tolist()}, want {n}")
+    t0 = time.perf_counter()
+    s_ref, i_ref = plain_discovery(z, w, cids, tids, zq, wq, tq, qid, g, k, DRY_PLAIN_CHUNK)
+    plain = sync_wall(t0)
+    _same_ranking("3j a) discovery cell", s_ref, i_ref, sc.cpu().numpy(), ids.cpu().numpy())
+    # on one card the four shards and one tile's transient: the cell's peak
+    # (one device's arguments and transient) plus the other three shards
+    predicted_peak = (DRY_SHARDS - 1) * r["memory"]["argument_bytes"] + r["memory"]["peak_bytes"]
+    log(f"3j a) ({smi}): {n} columns x {q} queries, k={k}, on {DRY_SHARDS} copies of the card: "
+        f"argument bytes {predicted} predicted, {placed} placed ({rel:.3%}); pipeline "
+        f"{wall * 1e3:.3f} ms (first call {first * 1e3:.3f} ms); max_memory_allocated "
+        f"{peak} against the dry run's {predicted_peak} ({peak / predicted_peak:.3f}); plain "
+        f"pipeline {plain:.2f} s; ids equal up to ties; dry run bound "
+        f"{r['bound_s'] * 1e3:.3f} ms a device ({r['bottleneck']})")
+    del corpus, z, w, cids, tids
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall * 1e3, "first_ms": first * 1e3, "argument_bytes": predicted,
+            "placed": placed, "max_memory_allocated": peak, "peak_bytes": predicted_peak,
+            "bound_ms": r["bound_s"] * 1e3, "trace": trace}
+
+
+def dry_long(arch: str, dev, smi: str, out_dir: str) -> dict:
+    """3j b), c): a sub-quadratic model's ``long_500k`` cell through the dry
+    run with a 1 x 1 mesh, then for real: the full-width model drawn on the
+    card, ``init_caches(cfg, 1, 524288)`` with ``len`` 524,287 (the step
+    reads the whole cache) and one ``decode_step`` timed by CUDA events
+    after one warm-up. The placement must come within ``DRY_ARG_RTOL`` of the
+    cell's argument bytes."""
+    r = _dry_cell(arch, "long_500k", "1x1", out_dir)
+    cfg = lm_registry.get_config(arch)
+    seq = lm_registry.SHAPES["long_500k"]["seq"]
+    card = _card(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(card)
+    params = lm_registry.init_params(cfg, generator=torch.Generator(card).manual_seed(0),
+                                     device=card)
+    caches = lm_registry.init_caches(cfg, 1, seq, device=card)
+    caches["len"] = seq - 1
+    tok = torch.randint(0, cfg.vocab, (1, 1), generator=torch.Generator(card).manual_seed(1),
+                        device=card)
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated(card) - before
+    rel = _fits_placement(f"3j {arch}", r["memory"]["argument_bytes"], placed)
+    torch.cuda.reset_peak_memory_stats(card)
+    logits, _ = lm_registry.decode_step(params, cfg, {"tokens": tok}, caches)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits, _ = lm_registry.decode_step(params, cfg, {"tokens": tok}, caches)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated(card) - before
+    if logits.shape != (1, 1, cfg.vocab) or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"3j {arch}: logits {tuple(logits.shape)} not finite")
+    trace = _trace_step(f"3j {arch} long_500k decode step", lambda: lm_registry.decode_step(
+        params, cfg, {"tokens": tok}, caches), ms, smi)
+    bound_ms = r["bound_s"] * 1e3
+    log(f"3j {arch} long_500k ({smi}): argument bytes {r['memory']['argument_bytes']} "
+        f"predicted, {placed} placed ({rel:.3%}); decode step {ms:.3f} ms against the dry run's "
+        f"bound {bound_ms:.4f} ms ({r['bottleneck']}; {bound_ms / ms:.2%} of the step); "
+        f"max_memory_allocated {peak} against the dry run's peak {r['memory']['peak_bytes']} "
+        f"({peak / r['memory']['peak_bytes']:.3f})")
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bound_ms": bound_ms, "argument_bytes": r["memory"]["argument_bytes"],
+            "placed": placed, "max_memory_allocated": peak,
+            "peak_bytes": r["memory"]["peak_bytes"], "trace": trace}
+
+
+def dry_test_cell(out_dir: str) -> dict:
+    """3j d): the test cell (whisper-base, decode_32k, the single mesh)
+    through the dry run on the card's host. It runs no kernel: this shows
+    that the command works where the card is."""
+    t0 = time.perf_counter()
+    r = _dry_cell("whisper-base", "decode_32k", None, out_dir)
+    wall = time.perf_counter() - t0
+    if r["memory"]["argument_bytes"] != DRY_TEST_CELL_ARGUMENT_BYTES:
+        raise AssertionError(f"3j d): argument bytes {r['memory']['argument_bytes']}")
+    log(f"3j d) whisper-base decode_32k (single mesh) dry run on the host in {wall:.2f} s: "
+        f"argument bytes {r['memory']['argument_bytes']}, traced flops a device "
+        f"{r['traced_flops_per_device']:.6g} beside the analytic {r['flops_per_device']:.6g}")
+    return {"wall_s": wall}
+
+
+def dry_path(dev, smi: str) -> dict:
+    """Phase 3j: the dry run's figures beside the card's for the cells that
+    fit one H100."""
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    try:
+        a, counts = counted("dry run discovery", ("fused_score",),
+                            lambda: dry_discovery(dev, smi, out_dir))
+        if any(v for name, v in counts.items() if name != "fused_score"):
+            raise AssertionError(f"3j a) launched other kernels: {counts}")
+        a["launches"] = counts["fused_score"]
+        long = {}
+        for arch in DRY_LONG:
+            long[arch], c = counted(f"dry run {arch}", (), lambda: dry_long(arch, dev, smi,
+                                                                            out_dir))
+            if any(c.values()):
+                raise AssertionError(f"3j {arch} launched FREYJA kernels: {c}")
+        d = dry_test_cell(out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"discovery": a, "long": long, "test_cell": d}
+
+
 def counted(path: str, required, drive):
     """Drive one path of phase 3 with every launch count set to 0 just
     before it, read the counts just after, and fail if a kernel of the path
@@ -3111,9 +3349,29 @@ def main() -> int:
             f"{k} {v['rel']:.2e}" for k, v in shard_run["moe"].items())
         + f"; launches {shard_counts}")
 
+    # phase 3j: the dry run beside the card
+    t0 = time.perf_counter()
+    dry = dry_path(dev, smi)
+    a = dry["discovery"]
+    log(f"dry run summary ({smi}): discovery cell {a['wall_ms']:.3f} ms, {a['launches']} "
+        f"fused_score launches, placed/predicted {a['placed'] / a['argument_bytes']:.4f}, "
+        f"peak/predicted {a['max_memory_allocated'] / a['peak_bytes']:.3f}, idle share "
+        f"{a['trace']['idle']:.1%}; "
+        + "; ".join(f"{arch} long_500k decode {v['ms']:.3f} ms (bound {v['bound_ms']:.4f} ms, "
+                    f"{v['bound_ms'] / v['ms']:.2%}), placed/predicted "
+                    f"{v['placed'] / v['argument_bytes']:.4f}, peak/predicted "
+                    f"{v['max_memory_allocated'] / v['peak_bytes']:.3f}, "
+                    f"{v['trace']['kernels']} kernels, idle share {v['trace']['idle']:.1%}"
+                    for arch, v in dry["long"].items())
+        + f"; test cell on the host {dry['test_cell']['wall_s']:.2f} s; "
+        f"phase 3j {time.perf_counter() - t0:.2f} s")
+
     # phase 4: kernels at the main path's shapes
     t0 = time.perf_counter()
     kernels = measure_kernels(run, dev, launches)
+    for row in kernels:
+        if row["name"] == "fused_score":
+            row["dryrun_cell"] = {k: a[k] for k in ("launches", "wall_ms", "max_memory_allocated")}
     log(f"phase 4: {time.perf_counter() - t0:.2f} s")
 
     # phase 5: device time by operation, per plan

@@ -16,13 +16,91 @@ carries a gradient back through the copies onto the shards.
 
 A mesh may name one device several times: its shards are then separate
 tensors on that device, as XLA's forced host-device count gives JAX.
+
+:func:`count_collectives` is a ledger of what these move: inside it, each
+call records under its XLA collective's name the bytes one device sends,
+by :func:`collective_bytes`' ring factors (a gather is an
+all-gather of the region, over the blocks it joins; a psum an all-reduce
+of one rank's part; an all-to-all one rank's part; a place a scatter,
+priced as a reduce-scatter of the whole tensor over its distinct blocks).
+A call that joins or splits fewer than two blocks moves nothing and is not
+recorded. The ledger counts what this single-controller program moves,
+e.g. tensor parallelism gathers every leaf where it is read, so its total
+differs from XLA's figure for the same cell. It is off by default; when
+it is off a call tests one thread-local and computes nothing for it.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import itertools
+import threading
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    bytes_by_op: dict
+    count_by_op: dict
+
+    @property
+    def total_bytes(self) -> float:
+        return sum(self.bytes_by_op.values())
+
+
+def collective_bytes(op: str, operand_bytes: float, result_bytes: float, n: int) -> float:
+    """Bytes one device sends for collective ``op`` over a group of ``n``
+    (the ring factors of ``launch.hlo_analysis``, which re-exports this)."""
+    n = max(int(n), 2)
+    ring = (n - 1) / n
+    if op == "all-gather":
+        return result_bytes * ring
+    if op == "reduce-scatter":
+        return operand_bytes * ring
+    if op == "all-reduce":
+        return 2 * operand_bytes * ring
+    if op == "all-to-all":
+        return operand_bytes * ring
+    if op == "collective-permute":
+        return operand_bytes
+    raise ValueError(f"unknown collective {op!r}")
+
+
+_LEDGER = threading.local()
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Record the collectives called inside the block (this thread's):
+    yields a :class:`CollectiveStats` that fills as they run."""
+    stats = CollectiveStats(bytes_by_op={}, count_by_op={})
+    outer = getattr(_LEDGER, "stats", None)
+    _LEDGER.stats = stats
+    try:
+        yield stats
+    finally:
+        _LEDGER.stats = outer
+
+
+def _counting() -> bool:
+    return getattr(_LEDGER, "stats", None) is not None
+
+
+def _record(op: str, operand_bytes: float, result_bytes: float, n: int) -> None:
+    """Add one call to the active ledger; callers test :func:`_counting`
+    first, so nothing is computed while the ledger is off."""
+    stats = _LEDGER.stats
+    if n < 2:
+        return
+    stats.bytes_by_op[op] = stats.bytes_by_op.get(op, 0.0) + collective_bytes(
+        op, operand_bytes, result_bytes, n)
+    stats.count_by_op[op] = stats.count_by_op.get(op, 0) + 1
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def axis_size(mesh, phys) -> int:
@@ -124,8 +202,10 @@ def place(t: torch.Tensor, mesh, spec, *, layer: tuple[int, int] | None = None) 
     holds ``l`` get it. A dimension that does not divide over its axes
     raises."""
     spec, positions = _layout(mesh, spec, t.dim(), layer)
-    shards = {p: t[region_of(mesh, spec, t.shape, p)].to(mesh.devices[p], copy=True).contiguous()
-              for p in positions}
+    regions = {p: region_of(mesh, spec, t.shape, p) for p in positions}
+    shards = {p: t[r].to(mesh.devices[p], copy=True).contiguous() for p, r in regions.items()}
+    if _counting():
+        _record("reduce-scatter", _nbytes(t), 0, len(set(regions.values())))
     return Sharded(mesh, spec, t.shape, t.dtype, shards)
 
 
@@ -188,7 +268,10 @@ def gather(sh: Sharded, device, region: tuple[slice, ...] | None = None, *,
         parts = [assemble(dim + 1, prefix + (c,)) for c in cuts[dim]]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
-    return assemble(0, ())
+    out = assemble(0, ())
+    if _counting():
+        _record("all-gather", 0, _nbytes(out), int(np.prod([len(c) for c in cuts])))
+    return out
 
 
 def psum(parts, device) -> torch.Tensor:
@@ -198,6 +281,8 @@ def psum(parts, device) -> torch.Tensor:
     total = parts[0].to(device)
     for t in parts[1:]:
         total = total + t.to(device)
+    if _counting():
+        _record("all-reduce", _nbytes(parts[0]), 0, len(parts))
     return total
 
 
@@ -207,5 +292,7 @@ def all_to_all(parts, devices) -> list[torch.Tensor]:
     order, block ``m`` of every rank's leading dimension, on ``devices[m]``."""
     n = len(parts)
     blocks = [torch.chunk(t, n, dim=0) for t in parts]
+    if _counting():
+        _record("all-to-all", _nbytes(parts[0]), 0, n)
     return [torch.cat([blocks[src][dst].to(devices[dst]) for src in range(n)], dim=0)
             for dst in range(n)]

@@ -58,12 +58,17 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
+class DuplicateSpecError(ValueError):
+    """A spec maps one mesh axis to more than one dimension (JAX's
+    exception of the same name)."""
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A (mesh, spec) pair: how one tensor lies over a ``DeviceMesh``. A
-    mesh axis splits at most one dimension (JAX raises
-    ``DuplicateSpecError``, e.g. for ``zero1_shardings`` under ``fsdp``,
-    where the batch axes already split ``embed``)."""
+    mesh axis splits at most one dimension: :class:`DuplicateSpecError`
+    otherwise, as in JAX (e.g. ``zero1_shardings`` under ``fsdp``, where the
+    batch axes already split ``embed``)."""
     mesh: object
     spec: PartitionSpec
 
@@ -71,7 +76,15 @@ class NamedSharding:
         used = [a for e in self.spec if e is not None
                 for a in (e if isinstance(e, tuple) else (e,))]
         if len(used) != len(set(used)):
-            raise ValueError(f"{self.spec} maps a mesh axis to more than one dimension")
+            raise DuplicateSpecError(f"{self.spec} maps a mesh axis to more than one "
+                                     "dimension")
+
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        """The per-device block of a ``shape`` tensor: each dimension over
+        the product of its mesh axes, rounded up (the padded block XLA's
+        buffers hold where a dimension does not divide)."""
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        return tuple(-(-int(d) // axis_size(self.mesh, a)) for d, a in zip(shape, spec))
 
 
 def set_mode(mode: str) -> None:

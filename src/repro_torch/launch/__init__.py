@@ -1,1 +1,2 @@
-"""Planning helpers: the analytic cost model of the discovery pipeline."""
+"""Entry points and planning helpers: the drivers, the analytic cost models
+and the device-free dry run."""

@@ -1,22 +1,266 @@
-"""Analytic cost of one discovery micro-batch, per pipeline stage.
+"""Analytic cost models: a language-model cell per device, and one
+discovery micro-batch per pipeline stage.
 
-The port of ``repro.launch.costmodel``: ``discovery_stage_costs`` (the
-planner's default cost hook), ``plan_cost_per_query``, the calibration from
-measured service-bench timings (``calibrate_stage_costs``,
-``make_calibrated_cost_fn``) and the bucket ladders derived from them
-(``derive_batch_buckets``, ``derive_column_buckets``). They read the JAX
-package's ``BENCH_service.json`` layout; the port writes no benchmark
-record of its own yet.
+The port of ``repro.launch.costmodel``, both halves:
+
+* the LM half, which the dry run reads (``launch.dryrun``): ``cell_cost``
+  (flops, HBM bytes and collective bytes per device and step of an
+  (arch x shape x mesh) cell, the MaxText/PaLM accounting specialized per
+  family: 6·N·D training matmuls, 4·T·W·h·dh attention, ring (n-1)/n
+  collective factors; ``remat="block"`` adds a forward recompute, 8/6 of
+  6·N·D), ``CellCost``, ``w_avg_decode`` and ``_cache_bytes_per_dev``,
+  pure numpy over ``ArchConfig`` fields and copied verbatim, so the port's
+  figures equal the JAX package's exactly. Conventions: T tokens a step
+  (B·S train/prefill; B decode), dp the data-parallel shards (pod x
+  data), mp the model shards, BF/F4 bf16/f32 byte sizes;
+* the discovery half: ``discovery_stage_costs`` (the planner's default
+  cost hook), ``plan_cost_per_query``, the calibration from measured
+  service-bench timings (``calibrate_stage_costs``,
+  ``make_calibrated_cost_fn``) and the bucket ladders derived from them
+  (``derive_batch_buckets``, ``derive_column_buckets``). They read the JAX
+  package's ``BENCH_service.json`` layout; the port writes no benchmark
+  record of its own yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
 
 from repro_torch.core import features as FT
 
-F4 = 4          # bytes of a float32 or a uint32
+BF, F4 = 2, 4   # bytes of a bfloat16; of a float32 or a uint32
+
+
+# ---------------------------------------------------------------------------
+# language-model cells (the dry run's analytic terms)
+# ---------------------------------------------------------------------------
+
+def _dense_layer_matmul_params(cfg) -> float:
+    d, f, nh, nk, dh = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv,
+                        cfg.d_head)
+    attn = d * nh * dh + 2 * d * nk * dh + nh * dh * d
+    mlp = (3 if cfg.act == "silu" else 2) * d * f
+    return attn + mlp
+
+
+def _layer_active_params(cfg) -> float:
+    """Matmul params touched per token per layer (MoE: top_k experts)."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.family == "moe":
+        attn = d * cfg.n_heads * cfg.d_head + 2 * d * cfg.n_kv * cfg.d_head \
+            + cfg.n_heads * cfg.d_head * d
+        mlp = cfg.top_k * (3 if cfg.act == "silu" else 2) * d * f \
+            + d * cfg.n_experts
+        return attn + mlp
+    if cfg.family == "ssm":        # rwkv6
+        lora = 2 * d * 64
+        return 5 * d * d + lora + 2 * d * f + d * d
+    if cfg.family == "hybrid":     # mamba2 blocks (shared attn added apart)
+        din = cfg.ssm_expand * d
+        h = din // cfg.ssm_headdim
+        return d * (2 * din + 2 * cfg.ssm_state + h) + din * d
+    if cfg.family == "encdec":
+        # averaged enc/dec layer (cross attn on decoder layers)
+        base = _dense_layer_matmul_params(cfg)
+        cross = (cfg.d_model * cfg.n_heads * cfg.d_head * 2
+                 + 2 * cfg.d_model * cfg.n_kv * cfg.d_head)
+        return base + cross * cfg.dec_layers / max(cfg.n_layers, 1)
+    return _dense_layer_matmul_params(cfg)
+
+
+def _layer_stored_params(cfg) -> float:
+    """Matmul params stored per layer (MoE: all experts)."""
+    if cfg.family == "moe":
+        d, f = cfg.d_model, cfg.d_ff
+        attn = d * cfg.n_heads * cfg.d_head + 2 * d * cfg.n_kv * cfg.d_head \
+            + cfg.n_heads * cfg.d_head * d
+        return attn + cfg.n_experts * (3 if cfg.act == "silu" else 2) * d * f
+    return _layer_active_params(cfg)
+
+
+def _n_layers(cfg) -> int:
+    if cfg.family == "encdec":
+        return cfg.enc_layers + cfg.dec_layers
+    return cfg.n_layers
+
+
+def _attn_window(cfg, s: int) -> float:
+    """Average keys attended per query token."""
+    if cfg.family == "ssm":
+        return 0.0                                  # attention-free
+    w = cfg.sliding_window
+    full = (s + 1) / 2                              # causal average
+    per_layer = min(w, s) if w else full
+    if cfg.family == "hybrid":
+        # one shared attn block per attn_every mamba layers
+        return per_layer / cfg.attn_every
+    if cfg.family == "encdec":
+        # enc: bidirect S keys; dec: causal + cross S keys
+        return (s + (full + s)) / 2
+    return per_layer
+
+
+def _ssm_flops_per_token(cfg) -> float:
+    """Recurrence flops per token per layer beyond projections."""
+    if cfg.family == "ssm":
+        h = cfg.d_model // cfg.rwkv_headdim
+        return 4 * h * cfg.rwkv_headdim ** 2        # rank-1 state update
+    if cfg.family == "hybrid":
+        din = cfg.ssm_expand * cfg.d_model
+        cs, n = cfg.ssm_chunk, cfg.ssm_state
+        # SSD: intra-chunk (≈ windowed attention of width Cs) + state update
+        return 4 * cs * din + 6 * n * din / cfg.ssm_headdim * cfg.ssm_headdim
+    return 0.0
+
+
+@dataclasses.dataclass
+class CellCost:
+    flops: float            # per device
+    hbm_bytes: float        # per device
+    coll_bytes: float       # per device
+    detail: dict
+
+    def as_dict(self):
+        return {"flops_per_device": self.flops,
+                "hbm_bytes_per_device": self.hbm_bytes,
+                "collective_bytes_per_device": self.coll_bytes,
+                "detail": self.detail}
+
+
+def cell_cost(cfg, kind: str, batch: int, seq: int, mesh_shape: dict,
+              *, zero1: bool = True, kv_cache_dtype_bytes: int = BF,
+              mode: str = "tp") -> CellCost:
+    mp = mesh_shape.get("model", 1)
+    dp = int(np.prod([v for k, v in mesh_shape.items() if k != "model"]))
+    n_dev = mp * dp
+    if mode == "dp":          # batch over every axis, weights replicated
+        dp, mp = n_dev, 1
+    l = _n_layers(cfg)
+    d, v = cfg.d_model, cfg.vocab
+    nh, nk, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+
+    p_layer_active = _layer_active_params(cfg)
+    p_layer_stored = _layer_stored_params(cfg)
+    p_matmul_active = l * p_layer_active + 2 * d * v  # embed + head
+    p_stored = l * p_layer_stored + (1 if cfg.tie_embeddings else 2) * d * v
+
+    t_global = batch * (seq if kind != "decode" else 1)
+    t_dev = t_global / dp if kind != "decode" else max(batch / dp, 1)
+    b_loc = max(batch / dp, 1)
+
+    mult = {"train": 6, "prefill": 2, "decode": 2}[kind]
+    remat_f = (8 / 6) if (kind == "train" and cfg.remat == "block") else 1.0
+
+    # ---- flops ----
+    matmul = mult * remat_f * t_dev * p_matmul_active / mp
+    w_avg = _attn_window(cfg, seq)
+    attn_mult = {"train": 3, "prefill": 1, "decode": 1}[kind] * remat_f
+    if kind == "decode":
+        attn = attn_mult * 4 * b_loc * w_avg_decode(cfg, seq) * nh * dh * l / mp
+    else:
+        attn = attn_mult * 4 * t_dev * w_avg * nh * dh * l / mp
+    ssm = mult / 2 * remat_f * t_dev * _ssm_flops_per_token(cfg) * l / mp
+    flops = matmul + attn + ssm
+
+    # ---- HBM bytes ----
+    p_shard = p_stored * BF / (mp if mp else 1)
+    if mode == "fsdp":
+        p_shard = p_shard / dp    # resident shard; AG'd slices stream through
+    if kind == "train":
+        # weights: fwd read + bwd read (+ remat extra read) + update write
+        w_reads = (3 if cfg.remat == "block" else 2) + 1
+        weight_traffic = p_shard * w_reads
+        # optimizer: grads f32 r+w, m/v read+write, param f32 math
+        opt_traffic = (p_stored / mp) * (F4 * 2 + F4 * 4 + F4 * 2) / \
+            (dp if zero1 else 1) + p_shard  # AG'd params write
+        # activations: residual stream + block internals (≈6 tensors/layer),
+        # written fwd + read bwd; remat halves what is stored
+        act_tensors = 2 if cfg.remat == "block" else 6
+        acts = 2 * act_tensors * l * t_dev * d * BF
+        logits = 2 * t_dev * (v / mp) * F4
+        hbm = weight_traffic + opt_traffic + acts + logits
+    elif kind == "prefill":
+        acts = 2 * 2 * l * t_dev * d * BF
+        hbm = p_shard + acts + t_dev * (v / mp) * F4
+    else:  # decode
+        cache = _cache_bytes_per_dev(cfg, batch, seq, mesh_shape,
+                                     kv_cache_dtype_bytes)
+        hbm = p_shard + 2 * cache + t_dev * (v / mp) * F4
+    hbm = float(hbm)
+
+    # ---- collective bytes (ring factors) ----
+    ring_mp = 2 * (mp - 1) / mp if mp > 1 else 0.0
+    ring_dp = (dp - 1) / dp if dp > 1 else 0.0
+    tok_bytes = t_dev * d * BF
+    if cfg.family == "moe" and cfg.moe_sharding == "ep" and mp > 1:
+        a2a = 2 * t_dev * cfg.top_k * max(cfg.capacity_factor, 2.0) * d * BF \
+            * (mp - 1) / mp
+        tp_per_layer = 1 * tok_bytes * ring_mp + a2a   # attn psum + A2A pair
+    else:
+        psums = 2 if cfg.family in ("moe", "hybrid") else 2
+        tp_per_layer = psums * tok_bytes * ring_mp
+    fwd_bwd = {"train": 2, "prefill": 1, "decode": 1}[kind]
+    coll = tp_per_layer * l * fwd_bwd
+    if kind == "train":
+        # ZeRO-1: reduce-scatter grads (f32) + all-gather params (bf16)
+        coll += (p_stored / mp) * (F4 + BF) * ring_dp
+    if mode == "fsdp":
+        # per-layer param all-gathers: fwd + bwd (+ remat refetch)
+        refetch = 3 if (kind == "train" and cfg.remat == "block") else \
+            (2 if kind == "train" else 1)
+        coll += refetch * (p_stored * BF / mp) * ring_dp
+    if kind == "decode" and batch < dp and seq >= 2 ** 18:
+        # sequence-sharded cache: per layer combine of partial attention
+        coll += l * b_loc * nh * dh * F4 * ring_dp
+    return CellCost(flops=float(flops), hbm_bytes=hbm, coll_bytes=float(coll),
+                    detail={"matmul_flops": float(matmul),
+                            "attn_flops": float(attn),
+                            "ssm_flops": float(ssm),
+                            "param_bytes_per_dev": float(p_shard),
+                            "tokens_per_dev": float(t_dev),
+                            "n_devices": n_dev})
+
+
+def w_avg_decode(cfg, seq: int) -> float:
+    if cfg.family == "ssm":
+        return 0.0
+    w = cfg.sliding_window
+    per = min(w, seq) if w else seq
+    if cfg.family == "hybrid":
+        return per / cfg.attn_every
+    if cfg.family == "encdec":
+        return 2 * seq            # self cache + cross memory
+    return per
+
+
+def _cache_bytes_per_dev(cfg, batch, seq, mesh_shape, cache_b) -> float:
+    mp = mesh_shape.get("model", 1)
+    dp = int(np.prod([v for k, v in mesh_shape.items() if k != "model"]))
+    l = _n_layers(cfg)
+    if cfg.family == "ssm":
+        h = cfg.d_model // cfg.rwkv_headdim
+        st = batch * h * cfg.rwkv_headdim ** 2 * F4 * l
+        return st / dp if batch >= dp else st
+    size = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
+    # cache sharded over 'model' via kv heads when divisible, else via the
+    # sequence axis (flash-decoding SPMD combine) — see dryrun.cache_shardings
+    kv_shard = mp if (cfg.n_kv % mp == 0 or size % mp == 0) else 1
+    per_layer = 2 * batch * size * cfg.n_kv * cfg.d_head * cache_b / kv_shard
+    n_attn = l if cfg.family != "hybrid" else l // cfg.attn_every
+    total = per_layer * n_attn
+    if cfg.family == "hybrid":
+        din = cfg.ssm_expand * cfg.d_model
+        h = din // cfg.ssm_headdim
+        total += batch * h * cfg.ssm_state * cfg.ssm_headdim * F4 * l
+    shard = dp if batch >= dp else (dp if seq >= 2 ** 18 else 1)
+    return total / shard
+
+
+# ---------------------------------------------------------------------------
+# discovery pipeline (candidate -> score -> merge) per-stage costs
+# ---------------------------------------------------------------------------
 
 
 def discovery_stage_costs(n_queries: int, n_columns: int, *, budget: int,

@@ -138,6 +138,18 @@ def precompute_cross_kv(params: EncDec, cfg, memory):
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
+def dec_decode_block(pl, cfg, x, i: int, caches: dict):
+    """Decoder layer ``i`` at one decode step (the dry run traces it)."""
+    h = apply_norm(pl.ln1, x, cfg.norm)
+    x = x + cached_attention(pl.attn, cfg, h, caches["kv"], i, caches)
+    cross = caches["cross"]
+    ccache = {"k": cross["k"][i], "v": cross["v"][i], "len": caches["enc_len"], "offset": 0}
+    h = apply_norm(pl.ln_cross, x, cfg.norm)
+    h, _ = attn.attention_decode(pl.cross, cfg, h, ccache, xkv_cache_only=True)
+    x = x + h
+    return x + apply_mlp(pl.mlp, apply_norm(pl.ln2, x, cfg.norm), cfg.act)
+
+
 @torch.no_grad()
 def decode_step(params: EncDec, cfg, tokens, caches, *, mesh=None):
     """One decoder token against the self KV cache (updated in place) and
@@ -146,16 +158,8 @@ def decode_step(params: EncDec, cfg, tokens, caches, *, mesh=None):
         return sharded_decode(params, mesh, tokens, caches,
                               lambda v, t, c: decode_step(v, cfg, t, c))
     x = embed_tokens(params.embed, tokens, dtype_of(cfg.compute_dtype))
-    kv, cross = caches["kv"], caches["cross"]
     for i, pl in enumerate(params.dec_blocks):
-        h = apply_norm(pl.ln1, x, cfg.norm)
-        x = x + cached_attention(pl.attn, cfg, h, kv, i, caches)
-        ccache = {"k": cross["k"][i], "v": cross["v"][i], "len": caches["enc_len"],
-                  "offset": 0}
-        h = apply_norm(pl.ln_cross, x, cfg.norm)
-        h, _ = attn.attention_decode(pl.cross, cfg, h, ccache, xkv_cache_only=True)
-        x = x + h
-        x = x + apply_mlp(pl.mlp, apply_norm(pl.ln2, x, cfg.norm), cfg.act)
+        x = dec_decode_block(pl, cfg, x, i, caches)
     new = dict(caches)
     new["len"] = caches["len"] + 1
     x = apply_norm(params.final_norm, x, cfg.norm)

@@ -40,7 +40,11 @@ def param(t: torch.Tensor) -> nn.Parameter:
 def dense_init(gen: torch.Generator, shape, dtype, device, scale: float | None = None):
     """Normal(0, 1/sqrt(shape[0])) weights, drawn in float32 on the
     generator's device from ``gen``, then cast and moved. ``shape[0]`` is the
-    fan-in as in JAX (for an (E, d, f) expert stack that is E)."""
+    fan-in as in JAX (for an (E, d, f) expert stack that is E). On the
+    ``meta`` device nothing is drawn: the weight is an empty ``meta``
+    tensor of the shape and dtype (the dry run's stand-in)."""
+    if torch.device(device).type == "meta":
+        return param(torch.empty(tuple(shape), dtype=dtype, device="meta"))
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)

@@ -65,7 +65,10 @@ def _dispatch(eids, weights, tokens, n_buckets: int, capacity: int):
     dev = eids.device
     order = torch.argsort(eids, stable=True)
     es = eids[order]
-    counts = torch.bincount(es, minlength=n_buckets)
+    # a static-shape count (bincount's size depends on the data, so it has
+    # no meta kernel and the dry run could not trace it)
+    counts = torch.zeros(n_buckets, dtype=torch.int64, device=dev).scatter_add_(
+        0, es.long(), torch.ones_like(es, dtype=torch.int64))
     start = torch.cumsum(counts, 0) - counts
     pos = torch.arange(tk, device=dev) - start[es]
     keep = pos < capacity

@@ -1,14 +1,18 @@
-"""Architecture registry: ``--arch <id>`` -> config + model functions.
+"""Architecture registry: ``--arch <id>`` -> config + model functions +
+per-shape input specs (``meta`` tensors, no allocation).
 
-The port of ``repro.models.registry``. ``input_specs`` (the dry run's
-shape stand-ins) comes with the port's dry run, in a later slice.
-``param_specs`` gives the logical-axis spec tree the JAX package's
-``init_params`` returns beside its parameters.
+The port of ``repro.models.registry``. ``input_specs`` gives the dry run's
+stand-ins for a cell's inputs, as ``meta`` tensors where the JAX package
+gives ``ShapeDtypeStruct``s; ``init_params(cfg, device="meta")`` and
+``init_caches(..., device="meta")`` give its parameters and caches the
+same way. ``param_specs`` gives the logical-axis spec tree the JAX
+package's ``init_params`` returns beside its parameters.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Any
 
 import torch
 
@@ -61,9 +65,14 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator | None = None, de
     """The model's parameters as an ``nn.Module`` on ``device`` (default:
     the card), drawn from ``generator`` (default: a generator on that device
     seeded with 0). The draws run on the generator's device, so a host
-    generator builds host-seeded weights on any device."""
+    generator builds host-seeded weights on any device. On ``meta`` nothing
+    is drawn (the generator is ignored): every weight is an empty ``meta``
+    tensor."""
     dev = resolve_device(device)
-    gen = generator if generator is not None else torch.Generator(dev).manual_seed(0)
+    if dev.type == "meta":
+        gen = None
+    else:
+        gen = generator if generator is not None else torch.Generator(dev).manual_seed(0)
     if is_encdec(cfg):
         return encdec.init_encdec(cfg, gen, dev)
     return transformer.init_lm(cfg, gen, dev)
@@ -94,6 +103,38 @@ def init_caches(cfg: ArchConfig, batch: int, seq: int, *, device=None):
     if is_encdec(cfg):
         return encdec.init_decode_caches(cfg, batch, seq, enc_len=seq, device=dev)
     return transformer.init_caches(cfg, batch, seq, dev)
+
+
+# ---------------------------------------------------------------------------
+# input specs (dry-run stand-ins)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> dict[str, Any]:
+    """``meta`` stand-ins for every model input of this cell (the JAX
+    package's ``ShapeDtypeStruct``s). ``tokens`` and ``labels`` are int64,
+    the dtype the port's model functions index with; the dry run counts them
+    at 4 bytes an element, as the JAX package's int32 (``launch.dryrun``).
+    A decode cell's ``caches`` are ``init_caches(..., device="meta")``, whose
+    ``len`` and ``offset`` (and whisper's ``enc_len``) are host ints where
+    JAX holds int32 scalars."""
+    sh = SHAPES[shape_name]
+    b, s, kind = sh["batch"], sh["seq"], sh["kind"]
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if kind in ("train", "prefill"):
+        specs = {"tokens": meta((b, s), torch.int64)}
+        if kind == "train":
+            specs["labels"] = meta((b, s), torch.int64)
+        if cfg.family == "vlm":
+            specs["img"] = meta((b, cfg.n_patches, cfg.d_model), torch.bfloat16)
+        if is_encdec(cfg):
+            specs["frames"] = meta((b, s, cfg.d_model), torch.bfloat16)
+        return specs
+    # decode: one token + caches of length s
+    return {"tokens": meta((b, 1), torch.int64),
+            "caches": init_caches(cfg, b, s, device="meta")}
 
 
 def reduced_config(cfg: ArchConfig) -> ArchConfig:

@@ -399,6 +399,33 @@ def cached_attention(p, cfg, h, kv: dict, i: int, caches: dict):
     return out
 
 
+# one block of each kind at one decode step (the dry run traces these)
+
+def dense_decode_block(pl, cfg, x, kv, i: int, caches: dict, mesh=None):
+    h = apply_norm(pl.ln1, x, cfg.norm)
+    x = x + cached_attention(pl.attn, cfg, h, kv, i, caches)
+    return x + _ffn(pl, cfg, apply_norm(pl.ln2, x, cfg.norm), mesh)
+
+
+def rwkv_decode_block(pl, cfg, x, st: dict, i: int):
+    x, ns = rwkv_mod.rwkv_block_forward(pl, cfg, x, state=_layer(st, i))
+    _write(st, i, ns)
+    return x
+
+
+def mamba_decode_block(pl, norm, cfg, x, mamba: dict, i: int):
+    out, ns = ssm_mod.mamba2_decode(pl, cfg, apply_norm(norm, x, cfg.norm), _layer(mamba, i))
+    _write(mamba, i, ns)
+    return x + out
+
+
+def shared_decode_block(params, cfg, x, kv, g: int, caches: dict):
+    shared = params.shared
+    h = apply_norm(params.shared_norm, x, cfg.norm)
+    x = x + cached_attention(shared.attn, cfg, h, kv, g, caches)
+    return x + apply_mlp(shared.mlp, apply_norm(shared.ln2, x, cfg.norm), cfg.act)
+
+
 @torch.no_grad()
 def decode_step(params: LM, cfg, tokens, caches, *, mesh=None):
     """tokens (B, 1) -> (logits (B, 1, V), caches advanced by one token,
@@ -412,28 +439,20 @@ def decode_step(params: LM, cfg, tokens, caches, *, mesh=None):
     if cfg.family in ("dense", "moe", "vlm"):
         kv = caches["kv"]
         for i, pl in enumerate(params.blocks):
-            h = apply_norm(pl.ln1, x, cfg.norm)
-            x = x + cached_attention(pl.attn, cfg, h, kv, i, caches)
-            x = x + _ffn(pl, cfg, apply_norm(pl.ln2, x, cfg.norm), mesh)
+            x = dense_decode_block(pl, cfg, x, kv, i, caches, mesh)
         new = {"kv": kv, "len": caches["len"] + 1, "offset": caches["offset"]}
     elif cfg.family == "ssm":
         st = caches["rwkv"]
         for i, pl in enumerate(params.blocks):
-            x, ns = rwkv_mod.rwkv_block_forward(pl, cfg, x, state=_layer(st, i))
-            _write(st, i, ns)
+            x = rwkv_decode_block(pl, cfg, x, st, i)
         new = {"rwkv": st, "len": caches["len"] + 1}
     elif cfg.family == "hybrid":
         mamba, kv = caches["mamba"], caches["kv"]
-        shared = params.shared
         for g, group in enumerate(hybrid_groups(cfg)):
             for i in group:
-                h = apply_norm(params.blocks_norm[i], x, cfg.norm)
-                out, ns = ssm_mod.mamba2_decode(params.blocks[i], cfg, h, _layer(mamba, i))
-                _write(mamba, i, ns)
-                x = x + out
-            h = apply_norm(params.shared_norm, x, cfg.norm)
-            x = x + cached_attention(shared.attn, cfg, h, kv, g, caches)
-            x = x + apply_mlp(shared.mlp, apply_norm(shared.ln2, x, cfg.norm), cfg.act)
+                x = mamba_decode_block(params.blocks[i], params.blocks_norm[i], cfg, x,
+                                       mamba, i)
+            x = shared_decode_block(params, cfg, x, kv, g, caches)
         new = {"mamba": mamba, "kv": kv, "len": caches["len"] + 1,
                "offset": caches["offset"]}
     else:

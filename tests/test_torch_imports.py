@@ -84,6 +84,9 @@ _TRAIN_MODULES = {"repro_torch.train", "repro_torch.train.optimizer",
 # modules of the language-model sharding
 _DIST_MODULES = {"repro_torch.dist", "repro_torch.dist.sharding",
                  "repro_torch.dist.collectives", "repro_torch.dist.compression"}
+# modules of the dry run
+_DRYRUN_MODULES = {"repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis",
+                   "repro_torch.launch.costmodel"}
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 
 
@@ -101,6 +104,7 @@ def test_port_imports_without_jax_or_repro():
     assert _LM_MODULES <= names, _LM_MODULES - names
     assert _TRAIN_MODULES <= names, _TRAIN_MODULES - names
     assert _DIST_MODULES <= names, _DIST_MODULES - names
+    assert _DRYRUN_MODULES <= names, _DRYRUN_MODULES - names
 
 
 _EACH_FIRST = """

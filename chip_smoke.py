@@ -222,7 +222,8 @@ from repro_torch.dist.compression import make_int8_ef_allreduce   # noqa: E402
 from repro_torch.launch import serve as launch_serve              # noqa: E402
 from repro_torch.launch import train as launch_train              # noqa: E402
 from repro_torch.launch import dryrun                             # noqa: E402
-from repro_torch.launch.bench_scorer import launch_floor          # noqa: E402
+from repro_torch.launch.bench_scorer import (INT_RATE_BLOCKS_PER_SM,  # noqa: E402
+                                            int_rate, int_rate_ops, launch_floor)
 from repro_torch.launch.dryrun import FREYJA_DEPTH, FREYJA_TREES  # noqa: E402
 from repro_torch.launch.mesh import make_grid_mesh, make_local_mesh  # noqa: E402
 from repro_torch.models import encdec as lm_encdec                # noqa: E402
@@ -243,6 +244,7 @@ from repro_torch.train.trainer import build_train_step, cross_entropy, loss_fn  
 
 # the main path's geometry
 N_COLUMNS, N_ROWS, N_PERM, N_BANDS, N_QUERIES, K = 100_000, 256, 128, 64, 64, 10
+UPLOAD_COLUMNS = 8      # an upload's columns, padded as service/catalog.py pads them
 N_COARSE = 16           # coarse super-band digest width S
 OVERLAP_GATE = 0.99     # quantized vs float32 top-k overlap (tests/test_scale.py)
 # scores: the tolerances of tests/test_kernels.py (float32 GBDT sums)
@@ -271,7 +273,8 @@ EARLIER_MS = {"fused_score": 1.1280, "fused_score gathered": 0.1154,
               "fused_score_q": 1.1161, "fused_score_q gathered": 0.1010,
               "gbdt_infer": 1.2519, "lsh_probe": 0.2425, "lsh_probe coarse": 0.0422,
               "lsh_probe_gathered pre-gathered": 0.0223, "quality_cdf": 0.0073,
-              "quality_cdf exact metric": 0.0506}
+              "quality_cdf exact metric": 0.0506, "minhash": 0.1215,
+              "minhash upload": 0.0178}
 # the model path: the JAX package's evaluation lakes (benchmarks/common.py),
 # bench_lake(100), bench_lake(101) and hard_lake(102) to train on, as
 # bench_model does, and bench_lake(0) held out
@@ -415,8 +418,10 @@ def fused_score_bound(q: int, corpus_rows: int, pairs: int, t: int, d: int,
 
 def minhash_bound(c: int, r: int, p: int):
     """Values read once, signatures written once; per (column, row,
-    permutation) a multiply, an add, a sentinel compare, a select and a min."""
-    return bound_ms(c * r * 4 + p * 8 + c * p * 4, 0.0, 5.0 * c * r * p)
+    permutation) a multiply-add and a min, and per value its sentinel test
+    and the replacement of a sentinel (the test belongs to the value, not to
+    each permutation)."""
+    return bound_ms(c * r * 4 + p * 8 + c * p * 4, 0.0, 2.0 * c * r * p + 2.0 * c * r)
 
 
 def lsh_probe_bound(q: int, c: int, b: int):
@@ -592,9 +597,13 @@ def check_ragged(dev) -> None:
             zc, wc = _random_profiles(r, lead, dev)
             _scorer_equal("fused_score", ops.fused_score(zq, wq, zc, wc, g),
                           ref.fused_score_ref(zq, wq, zc, wc, *g), (q, lead, t, d))
-    for c, rows, p in [(1, 1, 1), (7, 700, 64), (33, 256, 128), (9, 1000, 300)]:
+    # the narrow and the wide block (C >= 4096); column 0's back half, every
+    # column's first row and the last column are sentinels
+    for c, rows, p in [(1, 1, 1), (7, 700, 64), (33, 256, 128), (9, 1000, 300),
+                       (4099, 300, 37)]:
         vals = r.integers(0, 2 ** 32 - 1, (c, rows), dtype=np.uint64).astype(np.uint32)
         vals[0, rows // 2:] = FT.HASH_SENTINEL
+        vals[:, 0] = vals[-1] = FT.HASH_SENTINEL
         v = hashes_to_torch(vals, dev)
         a, b = (hashes_to_torch(x, dev) for x in make_permutations(p, seed=2))
         if not torch.equal(ops.minhash(v, a, b), ref.minhash_ref(v, a, b)):
@@ -1922,7 +1931,26 @@ def measure_kernels(run, dev, launches: dict) -> list:
     out.append(record("minhash", ops.minhash(v, a, b), ref.minhash_ref(v, a, b), True,
                       lambda: minhash_cuda(v_b, a_b, b_b),
                       lambda: ref.minhash_ref(v, a, b),
-                      minhash_bound(*v.shape, N_PERM), 10, 2))
+                      minhash_bound(*v.shape, N_PERM), 20, 2))
+    # ... at an upload's: the serve path signs one upload's columns, padded to
+    # UPLOAD_COLUMNS, per launch
+    vu, vu_b = v[:UPLOAD_COLUMNS].contiguous(), v_b[:UPLOAD_COLUMNS].contiguous()
+    if not torch.equal(ops.minhash(vu, a, b), ref.minhash_ref(vu, a, b)):
+        raise AssertionError("minhash (upload) differs from its plain version")
+    u_ms = time_ms(lambda: minhash_cuda(vu_b, a_b, b_b), 50, flush)
+    ub_ms, ub_by = minhash_bound(*vu.shape, N_PERM)
+    # ... beside the card's rate for its loop: multiply-add chains alone, and
+    # each followed by a min as minhash's hashes are
+    blocks = INT_RATE_BLOCKS_PER_SM * _build.sm_count(dev)
+    imad_s, loop_s = (int_rate_ops(blocks) / (time_ms(lambda: int_rate(dev, m, blocks), 5, flush)
+                                              * 1e-3) for m in (False, True))
+    loop_ms = v.shape[0] * v.shape[1] * N_PERM / loop_s * 1e3
+    out[-1].update(upload_ms=u_ms, upload_bound_ms=ub_ms, loop_ceiling_ms=loop_ms)
+    log(f"kernel minhash (upload {tuple(vu.shape)}): {u_ms:.4f} ms (bound {ub_ms:.6f} ms by "
+        f"{ub_by}, {ub_ms / u_ms:.1%} of it{earlier('minhash upload')}); the card's "
+        f"multiply-adds {imad_s / 1e12:.3f} T/s alone, {loop_s / 1e12:.3f} T/s each with a "
+        f"min: minhash's loop at {tuple(v.shape)} x {N_PERM} needs {loop_ms:.4f} ms at that "
+        f"rate ({out[-1]['bound_ms'] / loop_ms:.1%} of the bound)")
 
     # lsh_probe at the pruned plans' geometry: (Q, B) against (C, B)
     qk_b, ck_b = to_bits(qk), to_bits(ck)

@@ -34,8 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("fused_score", "minhash", "lsh_probe", "lsh_probe_gathered",
            "fused_score_q", "profile_distance", "gbdt_infer", "quality_cdf")
 # built beside the kernels for the timing harness only: an empty kernel's
-# launch floor
-HARNESS = ("launch_floor",)
+# launch floor, and the integer rate of minhash's inner loop
+HARNESS = ("launch_floor", "int_rate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -76,6 +76,9 @@ _SIGNATURES = {
     },
     "launch_floor": {
         "freyja_launch_floor": ([_P], _I),
+    },
+    "int_rate": {
+        "freyja_int_rate": ([_P, _I, _I, _I, _P], _I),
     },
 }
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)

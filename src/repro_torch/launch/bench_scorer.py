@@ -15,7 +15,11 @@ read in place through their positions where the kernel takes positions (from
 the table, and from a copy at a 4-byte offset, which takes the one-key
 variant), and the gather-then-probe route. Runs ``quality_cdf`` at the labels' (128, 391)
 and the exact metric's (64, 100k), beside an empty kernel's launch floor
-where the library has one. Inputs come from a fixed seed. Each kernel is
+where the library has one. Signs (16384, 256) and (8, 256) values (10%
+sentinel cells) under P = 128 permutations with ``minhash``: ingest's chunk
+and an upload's padded 8 columns; beside them, where the library has it,
+the card's rate for minhash's loop (``int_rate``: multiply-add chains
+alone and with a running min). Inputs come from a fixed seed. Each kernel is
 held against its plain version bit for bit and timed with CUDA events as
 ``chip_smoke.py`` times kernels (L2 flushed, the launch queued behind a
 device spin).
@@ -41,6 +45,7 @@ from repro_torch.device import hashes_to_torch, to_bits
 from repro_torch.kernels import _build, quality_cdf, ref
 from repro_torch.kernels.gbdt_infer import gbdt_infer_cuda
 from repro_torch.kernels.lsh_probe import lsh_probe_cuda, lsh_probe_gathered_cuda
+from repro_torch.kernels.minhash import make_permutations, minhash_cuda
 from repro_torch.kernels.profile_distance import (fused_score_cuda, fused_score_q_cuda,
                                                   quantize_profiles)
 
@@ -50,6 +55,9 @@ BANDS = {"lsh_probe": 64, "lsh_probe coarse": 16}
 SURVIVORS = 2048                    # the tiered plan's survivor budget at 100k
 CDF_SHAPES = {"quality_cdf labels": (128, 391), "quality_cdf exact metric": (Q, N)}
 CDF_PARAMS = (0.25, 0.19, 0.44, 0.28, 0.0, 1.0)
+MINHASH_SHAPES = {"minhash": (16384, 256, 128), "minhash upload": (8, 256, 128)}
+# int_rate: blocks of 256 threads a SM (16 warps a scheduler), steps of 16 chains
+INT_RATE_BLOCKS_PER_SM, INT_RATE_ITERS, INT_RATE_CHAINS = 8, 2000, 16
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
@@ -75,6 +83,23 @@ def launch_floor(device) -> None:
     lib = _build.library("launch_floor")
     _build.check("launch_floor",
                  lib.freyja_launch_floor(torch.cuda.current_stream(device).cuda_stream))
+
+
+def int_rate(device, with_min: bool, blocks: int) -> None:
+    """Launch ``csrc/int_rate.cu`` on ``device``'s current stream: ``blocks``
+    x 256 threads x ``INT_RATE_ITERS`` x 16 multiply-adds, each followed by a
+    min if ``with_min``. Counted as no kernel's launch."""
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=device)
+    lib = _build.library("int_rate")
+    _build.check("int_rate", lib.freyja_int_rate(out.data_ptr(), int(with_min), blocks,
+                                                 INT_RATE_ITERS,
+                                                 torch.cuda.current_stream(device).cuda_stream))
+
+
+def int_rate_ops(blocks: int) -> int:
+    """The multiply-adds (and, with the min, the hashes) one ``int_rate``
+    launch computes."""
+    return blocks * 256 * INT_RATE_ITERS * INT_RATE_CHAINS
 
 
 def main(argv=None):
@@ -153,6 +178,20 @@ def main(argv=None):
         k = torch.rand(shape, generator=gen, device=dev)
         bench(name, lambda: quality_cdf.quality_cdf_cuda(j, k, *CDF_PARAMS),
               lambda: ref.quality_cdf_ref(j, k, *CDF_PARAMS), shape)
+    for name, (c, rows, p) in MINHASH_SHAPES.items():
+        vals = r.integers(0, 2 ** 32 - 1, (c, rows), dtype=np.uint64).astype(np.uint32)
+        vals[r.random((c, rows)) < 0.1] = FT.HASH_SENTINEL
+        v = hashes_to_torch(vals, dev)
+        a, b = (hashes_to_torch(x, dev) for x in make_permutations(p, 0))
+        v_b, a_b, b_b = to_bits(v), to_bits(a), to_bits(b)
+        bench(name, lambda: minhash_cuda(v_b, a_b, b_b),
+              lambda: to_bits(ref.minhash_ref(v, a, b)), (c, rows, p))
+    if "int_rate" in getattr(_build, "HARNESS", ()):
+        blocks = INT_RATE_BLOCKS_PER_SM * _build.sm_count(dev)
+        for name, with_min in (("int_rate IMAD", False), ("int_rate IMAD + min", True)):
+            bench(name, lambda: int_rate(dev, with_min, blocks), None,
+                  (blocks, 256, INT_RATE_ITERS, INT_RATE_CHAINS))
+            out[name]["ops_per_s"] = int_rate_ops(blocks) / (out[name]["ms"] * 1e-3)
     if "launch_floor" in getattr(_build, "HARNESS", ()):
         bench("launch floor", lambda: launch_floor(dev), None, ())
     print(json.dumps(out), flush=True)

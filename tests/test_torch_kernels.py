@@ -97,12 +97,42 @@ def test_make_permutations_bit_exact(p, seed):
     assert np.array_equal(a, np.asarray(ja)) and np.array_equal(b, np.asarray(jb))
 
 
-@pytest.mark.parametrize("c,r,p", [(1, 10, 16), (7, 700, 64), (16, 1024, 128)])
-def test_minhash_matches_pallas(c, r, p):
-    rng = np.random.default_rng(c + r + p)
-    # full-width values so the products wrap around 2^32
+def _minhash_values(c, r, layout, seed):
+    """(C, R) uint32 values at full width (the products wrap around 2^32)
+    with sentinel cells laid out as ``layout`` names."""
+    rng = np.random.default_rng(seed)
     vals = rng.integers(0, 2 ** 32 - 1, (c, r), dtype=np.uint64).astype(np.uint32)
-    vals[0, r // 2:] = FT.HASH_SENTINEL
+    if layout == "half":            # the back half of column 0
+        vals[0, r // 2:] = FT.HASH_SENTINEL
+    elif layout == "first_row":     # row 0 of every column; column 0's first 40
+        vals[:, 0] = FT.HASH_SENTINEL
+        vals[0, :40] = FT.HASH_SENTINEL
+    elif layout == "scattered":     # ~30% of the cells anywhere
+        vals[rng.random((c, r)) < 0.3] = FT.HASH_SENTINEL
+    elif layout == "dead_column":   # one column without a valid cell
+        vals[c // 2] = FT.HASH_SENTINEL
+    elif layout == "all_dead":      # no valid cell anywhere
+        vals[:] = FT.HASH_SENTINEL
+    elif layout == "padded":        # ingest's padding: a random length each, 0 included
+        n_real = rng.integers(0, r + 1, c)
+        n_real[0] = 0
+        vals[np.arange(r)[None, :] >= n_real[:, None]] = FT.HASH_SENTINEL
+    else:
+        raise ValueError(layout)
+    return vals
+
+
+@pytest.mark.parametrize("c,r,p,layout", [
+    pytest.param(1, 10, 16, "half", id="1-10-16"),
+    pytest.param(7, 700, 64, "half", id="7-700-64"),
+    pytest.param(16, 1024, 128, "half", id="16-1024-128"),
+    (8, 64, 16, "first_row"), (13, 300, 32, "scattered"), (9, 128, 16, "dead_column"),
+    (5, 40, 8, "all_dead"), (10, 1000, 24, "scattered"), (11, 1000, 16, "padded"),
+    (3, 33, 7, "first_row")])
+def test_minhash_matches_pallas(c, r, p, layout):
+    """The plain version against the Pallas kernel (4 x 128 blocks, so R =
+    1000 spans eight row blocks and C = 13 a ragged column block)."""
+    vals = _minhash_values(c, r, layout, seed=c + r + p)
     a, b = make_permutations(p, seed=3)
     want = minhash_pallas(jnp.asarray(vals), jnp.asarray(a), jnp.asarray(b),
                           block_c=4, block_r=128, interpret=True)
@@ -413,13 +443,23 @@ def test_fused_score_kernel_matches_plain(cuda, q, n, t, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c,r,p", [(1, 1, 1), (7, 700, 64), (33, 256, 128),
-                                   (9, 1000, 300)])
-def test_minhash_kernel_matches_plain(cuda, c, r, p):
-    rng = np.random.default_rng(c * r)
-    vals = rng.integers(0, 2 ** 32 - 1, (c, r), dtype=np.uint64).astype(np.uint32)
-    vals[0, r // 2:] = FT.HASH_SENTINEL
-    v = hashes_to_torch(vals, cuda)
+@pytest.mark.parametrize("c,r,p,layout", [
+    pytest.param(1, 1, 1, "half", id="1-1-1"),
+    pytest.param(7, 700, 64, "half", id="7-700-64"),
+    pytest.param(33, 256, 128, "half", id="33-256-128"),
+    pytest.param(9, 1000, 300, "half", id="9-1000-300"),
+    # the narrow block (C < 4096): the upload geometry and its padding, every
+    # layout, P = 1, R = 1000 over four row tiles, P = 300 over ten blocks
+    (8, 256, 128, "padded"), (8, 16, 128, "half"), (8, 256, 1, "first_row"),
+    (13, 300, 37, "first_row"), (13, 300, 37, "scattered"), (13, 300, 37, "dead_column"),
+    (13, 300, 37, "all_dead"), (9, 1000, 300, "scattered"), (256, 256, 128, "padded"),
+    # the wide block (C >= 4096): ingest's chunk, then ragged columns and
+    # permutations, row tiles and every layout
+    (16384, 256, 128, "padded"), (16384, 256, 128, "scattered"), (4096, 64, 1, "scattered"),
+    (4099, 300, 37, "first_row"), (4099, 300, 37, "dead_column"), (4099, 300, 37, "all_dead"),
+    (4100, 1024, 130, "padded"), (5000, 1000, 300, "scattered")])
+def test_minhash_kernel_matches_plain(cuda, c, r, p, layout):
+    v = hashes_to_torch(_minhash_values(c, r, layout, seed=c * r), cuda)
     a, b = (hashes_to_torch(x, cuda) for x in make_permutations(p, seed=2))
     got = ops.minhash(v, a, b)
     torch.cuda.synchronize()

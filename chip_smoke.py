@@ -2,14 +2,19 @@
 """Drive the PyTorch/CUDA port of FREYJA on one NVIDIA card, end to end.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
+    python3 chip_smoke.py --plans [ROOT]   # the plans and 3j a) of a checkout,
+                                           # measured as phase 5 measures them
 
 Phases:
 
 0. the card: name, count, and ``nvidia-smi``'s name and power limit;
 1. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once);
-2. each kernel against its plain PyTorch version at ragged small shapes,
-   and the three kernels that stage an ensemble in a constant bank
+2. each kernel against its plain PyTorch version at ragged small shapes
+   (the top-k kernel bit-equal at every rows x columns x k x kind of
+   ``TOPK_*``: ties, all -inf, signed zeros, NaNs with payloads; the lsh
+   stage's ties at the budgets; positions past 2^22), and the three
+   kernels that stage an ensemble in a constant bank
    (``fused_score``, ``fused_score_q``, ``gbdt_infer``) under two host
    threads calling them with two different ensembles;
 3. ten paths at real size, through the port's own entry points, each
@@ -68,8 +73,9 @@ Phases:
       executor. On one card a grid adds no device throughput: its
       queries/s beside the local plan's show what tiling and the merge
       cost.
-   g. the language-model serving path, which launches none of the eight
-      FREYJA kernels (the run fails if one launches): (a) smollm-360m as
+   g. the language-model serving path, which launches no FREYJA kernel but
+      the MoE router's ``topk`` (the run fails if another launches, or if
+      the MoE families launch no ``topk``): (a) smollm-360m as
       configured (32 layers, d_model 960, bf16) through
       ``launch.serve.main`` with its defaults (batch 4, prompt 64, 32 new
       tokens), then the same generation timed: prefill ms, decode ms a
@@ -86,8 +92,8 @@ Phases:
       (b)'s tolerance; (d) a 2-layer smollm-360m drawn on the host, copied
       to the card: forward and decode logits equal the host's (rtol 1e-4,
       atol 1e-5).
-   h. the language-model training path, which launches none of the FREYJA
-      kernels either (the run fails if one launches): (a) smollm-360m as
+   h. the language-model training path, which launches no FREYJA kernel
+      but the router's ``topk`` either (the same rule): (a) smollm-360m as
       configured (bf16 weights, float32 moments, block remat) through
       ``launch.train.main`` with its defaults (batch 8, seq 256, ``--mesh
       none``), 20 steps with a checkpoint every 10, then ``--steps 22`` on
@@ -107,8 +113,8 @@ Phases:
       torch_train_lm.py`` at its defaults (200 steps): its loss falls.
    i. the sharded language-model path (``dist``: logical-axis rules,
       ZeRO-1 moments, the MoE's tp/ep collectives, the int8 error-feedback
-      compressor), which launches none of the FREYJA kernels either (the
-      run fails if one launches): (a) smollm-360m as configured (32
+      compressor), which launches no FREYJA kernel but the router's
+      ``topk`` either (the same rule): (a) smollm-360m as configured (32
       layers, bf16, batch 8 x 256) on ``make_local_mesh(model=2,
       devices=[card] * 4)``, a (2, 2) mesh over four copies of the card,
       in tp mode with ZeRO-1 moments: the steady step by CUDA events,
@@ -135,7 +141,7 @@ Phases:
       copies of the card, the profiles drawn on the card from a seeded
       generator: the placement within 1% of four times the cell's argument
       bytes, the ids equal to the plain pipeline's (chunks of 1M columns
-      merged by ``topk_stable``) up to exact ties, the wall and
+      merged by the plain top-k) up to exact ties, the wall and
       ``max_memory_allocated`` beside the cell's peak, one profiled call;
       (b), (c) rwkv6-3b and zamba2-2.7b at ``long_500k`` with a 1 x 1
       mesh, then the full-width model and a 524,288-token cache (``len``
@@ -146,7 +152,9 @@ Phases:
       through the dry run on the card's host, its argument bytes the JAX dry
       run's 408,764,460.
    Each plan's ids are held against a plain pipeline over the same
-   candidates (plain probes and plain scorers); the quantized top-10 must
+   candidates (plain probes, plain scorers and the plain top-k
+   ``ref.topk_ref``); every path's ``topk`` launches are logged; the
+   quantized top-10 must
    overlap the float32 one by at least 0.99. The model path's distances
    must equal the plain version's, its labels lie within 1e-6 of them on
    the same side of the training threshold, the two-stage scores match
@@ -155,10 +163,15 @@ Phases:
 4. each kernel at the main path's shapes and inputs: against its plain
    version, and timed with CUDA events beside its bound (the gathered probe
    in both forms and beside the earlier gather-then-probe route; an empty
-   kernel's launch floor beside ``quality_cdf``);
-5. one profiled batch of each plan and one two-stage scorer call: device
-   time by operation and the device's idle share; the tiered plan also
-   through the earlier route of its fine probe.
+   kernel's launch floor beside ``quality_cdf``; the top-k kernel at every
+   site's shape beside its bound, its plain version, the stable sort it
+   replaced and ``torch.topk``);
+5. each plan's batch and the two-stage scorer call profiled (five calls
+   after an unrecorded window, divided by them; whether the window holds
+   whole calls is logged): device time by operation, the top-k kernel's and any sort's,
+   and the device's idle share (the run fails if a plan's batch runs a
+   sort kernel); the tiered plan also through the earlier route of its
+   fine probe.
 
 It prints one ``kernels`` JSON line and, last, one ``ok`` JSON line; any
 failure raises and exits non-zero. It imports nothing of JAX.
@@ -214,6 +227,7 @@ from repro_torch.kernels.minhash import (make_permutations,       # noqa: E402
 from repro_torch.kernels.profile_distance import (                # noqa: E402
     fused_score_cuda, fused_score_q_cuda, profile_distance_cuda, quantize_profiles)
 from repro_torch.kernels.quality_cdf import quality_cdf_cuda      # noqa: E402
+from repro_torch.kernels.topk import topk_cuda                    # noqa: E402
 from repro_torch.ckpt.manager import CheckpointManager           # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline               # noqa: E402
 from repro_torch.dist import sharding as shd                      # noqa: E402
@@ -261,11 +275,15 @@ TPU_KERNELS = {
     "profile_distance": "src/repro/kernels/profile_distance.py:61",
     "gbdt_infer": "src/repro/kernels/gbdt_infer.py:56",
     "quality_cdf": "src/repro/kernels/quality_cdf.py:39",
+    # no pallas_call: jax.lax.top_k (XLA's TopK) in merge_topk, and at
+    # stages.py:155, :223, executor.py:153, moe.py:92, profiles.py:150
+    "topk": "src/repro/exec/stages.py:205",
 }
 # which path of phase 3 each kernel belongs to (its launches are read there)
 PATH_OF = {"fused_score": "discovery", "minhash": "discovery", "lsh_probe": "discovery",
            "lsh_probe_gathered": "scale", "fused_score_q": "scale",
-           "profile_distance": "model", "gbdt_infer": "model", "quality_cdf": "model"}
+           "profile_distance": "model", "gbdt_infer": "model", "quality_cdf": "model",
+           "topk": "discovery"}
 SIDE_BYTES = {"int8": 1, "fp16": 2}
 # kernels' times before their redesign, at the phase-4 shapes (PERF.md's
 # kernel table: NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
@@ -374,6 +392,28 @@ DRY_PLAIN_CHUNK = 1 << 20
 DRY_LONG = ("rwkv6-3b", "zamba2-2.7b")
 DRY_ARG_RTOL = 0.01
 DRY_TEST_CELL_ARGUMENT_BYTES = 408_764_460
+# phase 5 profiles this many calls of each plan, after one unrecorded
+# window: a profile window can lose its first call's kernels (a one-call
+# window showed 0-0.2 ms busy for plans that ten-call windows put at
+# 0.66-0.75 ms; H100, torch 2.11). A spin kernel marking each call was no
+# count of the calls held: 11 of 88 warm windows lost a marker while
+# holding every call's kernels. The window's own kernel counts are.
+TRACE_CALLS = 5
+# ``--plans``: synchronized batches a plan's steady wall is the mean of
+PLANS_REPS = 100
+# the top-k kernel's device functions, as the profiler names them
+TOPK_KERNEL_NAMES = ("warp_topk", "radix_round", "collect", "bitonic_chunk", "bitonic_global")
+# phase 2's top-k shapes: rows, columns and k (k = N too, wherever k <= N),
+# over every kind of row of _topk_rows
+TOPK_ROWS, TOPK_COLUMNS = (0, 1, 3, 64), (1, 2, 31, 33, 1000, 100_003)
+TOPK_KS = (0, 1, 10, 40, 128, 2048, 4096, 8192)
+TOPK_KINDS = ("random", "equal", "three", "neg_inf", "special")
+# float32 bit patterns of the "special" rows: signed zeros, infinities, quiet
+# and signalling NaNs of both signs with payloads, and ordinary values
+TOPK_SPECIAL = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000,
+                         0xFFC00000, 0x7FC00001, 0xFFC00005, 0x7F800001, 0xFF800003,
+                         0x3F800000, 0xBF800000, 0x3F000000, 0x00000001, 0x80000001],
+                        dtype=np.uint32).view(np.float32)
 # the caching allocator hands out a cached block whole when splitting it
 # would leave under 1 MiB, so a freed tensor may release up to that much
 # more than its size rounded to 512 bytes
@@ -468,6 +508,12 @@ def quality_cdf_bound(n: int):
     a subtract, two divides, an erf (~25 operations), an add, a multiply,
     a subtract and a clamp, and the product (float32)."""
     return bound_ms(n * 12, n * (2 * 32 + 1))
+
+
+def topk_bound(r: int, n: int, k: int):
+    """The scores read once, the (R, k) int64 positions written once; a
+    compare or two an element is far below the integer rate."""
+    return bound_ms(r * n * 4 + r * k * 8)
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
@@ -749,6 +795,60 @@ def check_ragged(dev) -> None:
     torch.cuda.synchronize()
 
 
+def _topk_rows(r: int, n: int, kind: str, seed: int, dev) -> torch.Tensor:
+    """(r, n) float32 rows: normal draws, all equal, three values, all -inf,
+    or the special patterns mixed with small integers."""
+    g = np.random.default_rng(seed)
+    if kind == "random":
+        x = g.normal(size=(r, n)).astype(np.float32)
+    elif kind == "equal":
+        x = np.full((r, n), 0.75, np.float32)
+    elif kind == "three":
+        x = g.choice(np.array([0.0, -1.0, 2.0], np.float32), (r, n))
+    elif kind == "neg_inf":
+        x = np.full((r, n), -np.inf, np.float32)
+    else:
+        x = np.where(g.random((r, n)) < 0.5, g.choice(TOPK_SPECIAL, (r, n)),
+                     g.integers(-2, 3, (r, n)).astype(np.float32))
+    return torch.from_numpy(x).to(dev)
+
+
+def _topk_equal(name: str, x, k: int) -> None:
+    got, want = topk_cuda(x, k), ref.topk_ref(x, k)
+    if not (torch.equal(got, want) and torch.equal(x.gather(1, got).view(torch.int32),
+                                                   x.gather(1, want).view(torch.int32))):
+        raise AssertionError(f"topk {name} k={k}: kernel differs from its plain version")
+
+
+def check_topk(dev) -> int:
+    """The top-k kernel against its plain version (positions and the value
+    bits they gather, ``torch.equal``) at every (rows, columns, k, kind) of
+    phase 2; then the lsh stage's ties at the budget gathers' k and
+    positions past 2^22 in a 4.2M-column row. Returns the cases checked."""
+    cases = 0
+    for r in TOPK_ROWS:
+        for n in TOPK_COLUMNS:
+            for i, kind in enumerate(TOPK_KINDS):
+                x = _topk_rows(r, n, kind, seed=r * 1000 + n + i, dev=dev)
+                for k in sorted({*TOPK_KS, n}):
+                    if k <= n:
+                        _topk_equal(f"{kind} {tuple(x.shape)}", x, k)
+                        cases += 1
+    g = np.random.default_rng(5)
+    hits = np.full((64, N_COLUMNS), -np.inf, np.float32)
+    for i in range(64):
+        hits[i, g.choice(N_COLUMNS, 60 * i, replace=False)] = 0.0
+    hits = torch.from_numpy(hits).to(dev)
+    for k in (K, 2048, 4096, 8192):
+        _topk_equal("lsh ties (64, 100k)", hits, k)
+    tile = torch.randn((2, FD.N_COLUMNS // DRY_SHARDS), generator=torch.Generator(
+        dev).manual_seed(1), device=dev)
+    tile[:, -7:] = 1e6
+    _topk_equal("late positions", tile, FD.TOP_K)
+    torch.cuda.synchronize()
+    return cases + 5
+
+
 def check_concurrent(dev, n_threads: int = 8, n_calls: int = 1000) -> dict:
     """``n_threads`` host threads on one stream, each calling a kernel that
     stages its ensemble in the library's constant bank with one of two
@@ -1018,6 +1118,37 @@ def _same_ranking(name, s_ref, i_ref, s, i, tol=RTOL) -> None:
                 raise AssertionError(f"{name}: row {row} id {d} (score {sd}) has no tie")
 
 
+def plain_topk(x, k: int):
+    """``stages.topk_stable`` through the top-k kernel's plain version
+    (``ref.topk_ref``): the plain pipelines below take every top-k from it,
+    so the plans, which run the kernel, are held against the plain order."""
+    pos = ref.topk_ref(x, k)
+    return x.gather(1, pos), pos
+
+
+def plain_merge(scores, cids, k: int):
+    """``stages.merge_topk`` over :func:`plain_topk`."""
+    sc, pos = plain_topk(scores, min(k, scores.shape[1]))
+    if cids.dim() == 1:
+        cids = cids[None].expand(scores.shape[0], -1)
+    return sc, torch.where(torch.isfinite(sc), torch.gather(cids, 1, pos), -1)
+
+
+def plain_gather(prio, budget: int):
+    """``stages.gather_candidates`` over :func:`plain_topk`."""
+    pval, pos = plain_topk(prio, budget)
+    return pos, torch.isfinite(pval)
+
+
+def plain_merge_sharded(tiles, k: int, axis_sizes, device):
+    """``stages.merge_topk_sharded`` over :func:`plain_topk`: the tiles'
+    pairs concatenated in ``stages.gather_order``, ranked once more."""
+    parts = [tiles[i] for i in stages.gather_order(axis_sizes)]
+    s = torch.cat([p[0].to(device) for p in parts], 1)
+    i = torch.cat([p[1].to(device) for p in parts], 1)
+    return (*plain_merge(s, i, k), sum(p[2].to(device) for p in parts))
+
+
 def reference_candidates(kind, zq, qkeys, z, ckeys, excl):
     """The candidate priorities of ``stages.candidate_priorities``, with the
     plain probe in place of the kernel."""
@@ -1055,16 +1186,16 @@ def check_main_path(run, dev) -> dict:
             raise AssertionError(f"{name}: NaN scores")
         if name == "all":
             s = torch.where(excl, float("-inf"), ref.fused_score_ref(zq, wq, z, w, *g))
-            s_ref, i_ref = stages.merge_topk(s, cids, K)
+            s_ref, i_ref = plain_merge(s, cids, K)
             n_ref = np.full(len(qids), z.shape[0])
             if not np.isfinite(sc).all():
                 raise AssertionError("all: a full scan left a top-k slot empty")
         else:
             prio = reference_candidates(plan.candidates, zq, qk, z, ck, excl)
-            pos, valid = stages.gather_candidates(prio, plan.budget)
+            pos, valid = plain_gather(prio, plan.budget)
             s = torch.where(valid, ref.fused_score_ref(zq, wq, z[pos], w[pos], *g),
                             float("-inf"))
-            s_ref, i_ref = stages.merge_topk(s, cids[pos], K)
+            s_ref, i_ref = plain_merge(s, cids[pos], K)
             n_ref = valid.sum(1).cpu().numpy()
         _same_ranking(name, s_ref, i_ref, sc, ids)
         if not np.array_equal(n_scored, n_ref):
@@ -1092,7 +1223,7 @@ def reference_rerank(zq, wq, z32, w, g, sc, ids, k):
     safe = ids.clamp(min=0)
     s = torch.where(torch.isfinite(sc), ref.fused_score_ref(zq, wq, z32[safe], w[safe], *g),
                     float("-inf"))
-    s2, pos = stages.topk_stable(s, min(k, s.shape[1]))
+    s2, pos = plain_topk(s, min(k, s.shape[1]))
     return s2, torch.where(torch.isfinite(s2), torch.gather(ids, 1, pos), -1)
 
 
@@ -1111,12 +1242,12 @@ def reference_tiered(zq, qk, qc, side, scale, ck, coarse, excl, plan, block_c):
             + fill / (1.0 + fill.abs()))
     surv = min(max(plan.survivor_budget, plan.budget), side.shape[0])
     budget = min(plan.budget, surv)
-    pos, valid = stages.gather_candidates(torch.where(excl, float("-inf"), prio), surv)
+    pos, valid = plain_gather(torch.where(excl, float("-inf"), prio), surv)
     zg = zf[pos]
     proxy = 2.0 * torch.einsum("qf,qmf->qm", zq, zg) - (zg * zg).sum(-1)
     prio2 = (ref.lsh_probe_gathered_ref(qk, ck[pos]).to(torch.float32)
              * stages._LSH_PRIORITY_BOOST + proxy / (1.0 + proxy.abs()))
-    pos2, valid2 = stages.gather_candidates(torch.where(valid, prio2, float("-inf")), budget)
+    pos2, valid2 = plain_gather(torch.where(valid, prio2, float("-inf")), budget)
     return dict(pos=pos, gpos=torch.gather(pos, 1, pos2), valid2=valid2,
                 n_hits=((hit > 0) & ~excl).sum(1), n_surv=(block_hit & ~excl).sum(1))
 
@@ -1150,7 +1281,7 @@ def check_scale_path(run, dev) -> dict:
         if plan.candidates == "all":
             s = torch.where(excl, float("-inf"),
                             ref.fused_score_q_ref(zq, wq, side, scale, w, *g))
-            s_scan, i_scan = stages.merge_topk(s, cids, k_scan)
+            s_scan, i_scan = plain_merge(s, cids, k_scan)
             n_ref = np.full(len(qids), z32.shape[0])
         else:
             tr = reference_tiered(zq, qk, qc, side, scale,
@@ -1160,7 +1291,7 @@ def check_scale_path(run, dev) -> dict:
             gpos = tr["gpos"]
             s = torch.where(tr["valid2"], ref.fused_score_q_ref(zq, wq, side[gpos], scale,
                                                                 w[gpos], *g), float("-inf"))
-            s_scan, i_scan = stages.merge_topk(s, cids[gpos], min(k_scan, gpos.shape[1]))
+            s_scan, i_scan = plain_merge(s, cids[gpos], min(k_scan, gpos.shape[1]))
             n_ref = tr["valid2"].sum(1).cpu().numpy()
             for got, want, what in zip(run["tiers"][name], (tr["n_hits"], tr["n_surv"]),
                                        ("coarse hits", "survivors")):
@@ -1386,28 +1517,28 @@ def plain_serve(ex, plan, zq, wq, tq, qid, qkeys, qcoarse, dev):
     excl = stages.exclusion_mask(cids, ex._tids, tq, qid)
     if plan.candidates == "all":
         s = torch.where(excl, float("-inf"), score(side, w))
-        sc, ids = stages.merge_topk(s, cids, spec["k"])
+        sc, ids = plain_merge(s, cids, spec["k"])
         n = stages.live_count(cids).expand(zq.shape[0])
     elif plan.candidates == "tiered":
         tr = reference_tiered(zq, qk, qc, side, scale, ex._ckeys, ex._coarse, excl, plan,
                               ex.survivor_block)
         gpos = tr["gpos"]
         s = torch.where(tr["valid2"], score(side[gpos], w[gpos]), float("-inf"))
-        sc, ids = stages.merge_topk(s, cids[gpos], min(spec["k"], gpos.shape[1]))
+        sc, ids = plain_merge(s, cids[gpos], min(spec["k"], gpos.shape[1]))
         n = tr["valid2"].sum(1)
     else:
         zf = side.to(torch.float32) * scale
         prio = reference_candidates(plan.candidates, zq, qk, zf, ex._ckeys, excl)
-        pos, valid = stages.gather_candidates(prio, spec["budget"])
+        pos, valid = plain_gather(prio, spec["budget"])
         s = torch.where(valid, score(side[pos], w[pos]), float("-inf"))
-        sc, ids = stages.merge_topk(s, cids[pos], spec["k"])
+        sc, ids = plain_merge(s, cids[pos], spec["k"])
         n = valid.sum(1)
     if ex._fp32_rows is not None:         # the exact float32 re-rank, plain
         safe = ids.clamp(0, ex.n_live - 1)
         zg = torch.from_numpy(np.asarray(ex._fp32_rows(safe.cpu().numpy()), np.float32)).to(dev)
         s = torch.where(torch.isfinite(sc), ref.fused_score_ref(zq, wq, zg, w[safe], *g),
                         float("-inf"))
-        sc, pos = stages.topk_stable(s, min(plan.k, s.shape[1]))
+        sc, pos = plain_topk(s, min(plan.k, s.shape[1]))
         ids = torch.where(torch.isfinite(sc), torch.gather(ids, 1, pos), -1)
     sc, ids = pad_topk(sc.cpu().numpy(), ids.cpu().numpy(), plan.k)
     return sc, ids, n.cpu().numpy()
@@ -1742,9 +1873,9 @@ def sharded_path(run: dict, dev, reps=5) -> dict:
 
 
 def plain_sharded(plan, grid, corpus, zq, wq, tq, qid, qk, g, dev, k=K):
-    """The grid pipeline with the plain probe and scorer: the same (query
-    shard, column shard) tiles and the same two-phase merge
-    (``stages.merge_topk_sharded``, ``stages.assemble_query_shards``).
+    """The grid pipeline with the plain probe, scorer and top-k: the same
+    (query shard, column shard) tiles and the same two-phase merge
+    (:func:`plain_merge_sharded`, ``stages.assemble_query_shards``).
     ``corpus`` is (z, w, cids, tids, keys) on the card; the grid must divide
     the batch and the lake."""
     q_sh, d_sh = grid
@@ -1763,16 +1894,16 @@ def plain_sharded(plan, grid, corpus, zq, wq, tq, qid, qk, g, dev, k=K):
             if plan.candidates == "all":
                 s = torch.where(excl, float("-inf"),
                                 ref.fused_score_ref(zq[qs], wq[qs], z[cs], w[cs], *g))
-                sc, ids = stages.merge_topk(s, cids[cs], k)
+                sc, ids = plain_merge(s, cids[cs], k)
                 tiles.append((sc, ids, stages.live_count(cids[cs]).expand(ql)))
                 continue
             prio = reference_candidates(plan.candidates, zq[qs], qk[qs], z[cs], ck[cs], excl)
-            pos, valid = stages.gather_candidates(prio, min(plan.budget_per_shard, per))
+            pos, valid = plain_gather(prio, min(plan.budget_per_shard, per))
             s = torch.where(valid, ref.fused_score_ref(zq[qs], wq[qs], z[cs][pos], w[cs][pos],
                                                        *g), float("-inf"))
-            sc, ids = stages.merge_topk(s, cids[cs][pos], k)
+            sc, ids = plain_merge(s, cids[cs][pos], k)
             tiles.append((sc, ids, valid.sum(1)))
-        rows.append(stages.merge_topk_sharded(tiles, k, (d_sh,), dev))
+        rows.append(plain_merge_sharded(tiles, k, (d_sh,), dev))
     return stages.assemble_query_shards(rows, (q_sh,), dev)
 
 
@@ -1911,7 +2042,7 @@ def measure_kernels(run, dev, launches: dict) -> list:
     qid = torch.from_numpy(qids.astype(np.int64)).to(dev)
     prio = reference_candidates("hybrid", zq, qk, z, ck,
                                 stages.exclusion_mask(cids, tids, tq, qid))
-    pos, _ = stages.gather_candidates(prio, hybrid.budget)
+    pos, _ = plain_gather(prio, hybrid.budget)
     zg, wg = z[pos].contiguous(), w[pos].contiguous()
     wg_b = to_bits(wg)
     _scorer_equal("fused_score (gathered)", ops.fused_score(zq, wq, zg, wg, g),
@@ -2086,39 +2217,140 @@ def measure_kernels(run, dev, launches: dict) -> list:
     log(f"kernel quality_cdf (at {shape}): {l_ms:.4f} ms (bound {lb_ms:.4f} ms by {lb_by}, "
         f"{lb_ms / l_ms:.1%} of it{earlier('quality_cdf exact metric')}), plain "
         f"{l_plain:.3f} ms, max |err| 0.0")
+    excl = stages.exclusion_mask(cids, tids, tq, qid)
+    out.append(measure_topk(launches, flush, dev, torch.where(excl, float("-inf"), got), prio,
+                            reference_candidates("lsh", zq, qk, z, ck, excl)))
     return out
+
+
+def topk_sites(s_all, prio_hybrid, prio_lsh, dev) -> list:
+    """The top-k kernel's inputs at every site of the main path and the
+    dry run's tile, from this run's scores and priorities where the path
+    makes them, and two larger k on the hybrid priorities: (site, x, k)."""
+    q = s_all.shape[0]
+    pos, _ = plain_gather(prio_hybrid, 4096)
+    s_g = s_all.gather(1, pos)                   # the hybrid plan's gathered scores
+    gen = torch.Generator(dev).manual_seed(DRY_SEED)
+    router = {e: torch.softmax(torch.randn((t, e), generator=gen, device=dev), -1)
+              for t, e in ((4608, 8), (128, 16))}
+    counts = torch.randint(0, 40, (catalog.CHUNK_COLUMNS, N_ROWS), generator=gen,
+                           device=dev).to(torch.float32)
+    return [
+        ("merge_topk (all)", s_all, K),
+        ("merge_topk (quantized over-fetch)", s_all, RESCORE_MULT * K),
+        ("gather_candidates (hybrid budget)", prio_hybrid, 4096),
+        ("gather_candidates (lsh budget)", prio_lsh, 4096),
+        ("tiered survivors", prio_hybrid, 2048),
+        ("tiered fine gather", prio_hybrid.gather(1, pos[:, :2048]), 2048),
+        ("merge_topk (gathered)", s_g, K),
+        ("merge_topk (tiered over-fetch)", s_g[:, :2048].contiguous(), RESCORE_MULT * K),
+        ("_rescore_exact / merge_topk_sharded", s_g[:, :RESCORE_MULT * K].contiguous(), K),
+        ("3j a) tile", torch.randn((q, FD.N_COLUMNS // DRY_SHARDS), generator=gen,
+                                   device=dev), FD.TOP_K),
+        ("MoE router (Mixtral)", router[8], 2),
+        ("MoE router (phi3.5-moe)", router[16], 2),
+        ("profiles top-10 words", counts, FT.N_FREQ_WORDS),
+        # no main-path site: a budget above the default 4096 (a planner's
+        # max_candidates raised), and the whole row
+        ("gather_candidates (budget 8192)", prio_hybrid, 8192),
+        ("gather_candidates (budget 32768)", prio_hybrid, 32768),
+        ("the whole row (k = N)", prio_hybrid, prio_hybrid.shape[1]),
+    ]
+
+
+def measure_topk(launches: dict, flush, dev, s_all, prio_hybrid, prio_lsh) -> dict:
+    """Phase 4's top-k row: at every site shape, the kernel against its plain
+    version (bit-equal), timed beside its bound, the plain version, the
+    stable sort it replaced and ``torch.topk`` (the same values in an order
+    it does not promise: a yardstick the port never calls). The row is the
+    ``all`` merge at (64, 100k), k = 10; every site stands in ``sites``."""
+    sites = []
+    for site, x, k in topk_sites(s_all, prio_hybrid, prio_lsh, dev):
+        x = x.contiguous()
+        _topk_equal(site, x, k)
+        r, n = x.shape
+        ms = time_ms(lambda: topk_cuda(x, k), 20, flush)
+        plain_ms = time_ms(lambda: ref.topk_ref(x, k), 5, flush)
+        sort_ms = time_ms(lambda: torch.sort(x, dim=1, descending=True, stable=True)
+                          .indices[:, :k], 5, flush)
+        lib_ms = time_ms(lambda: torch.topk(x, k, dim=1), 10, flush)
+        b_ms, b_by = topk_bound(r, n, k)
+        sites.append({"site": site, "shape": [r, n], "k": k, "ms": ms, "bound_ms": b_ms,
+                      "plain_ms": plain_ms, "stable_sort_ms": sort_ms, "library_ms": lib_ms})
+        log(f"kernel topk {site} {(r, n)} k={k}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
+            f"{b_by}, {b_ms / ms:.1%} of it), plain {plain_ms:.4f} ms, the stable sort it "
+            f"replaced {sort_ms:.4f} ms, torch.topk {lib_ms:.4f} ms")
+    main = sites[0]
+    return {"name": "topk", "route": "cuda", "source": "src/repro_torch/kernels/csrc/topk.cu",
+            "replaces": TPU_KERNELS["topk"], "launches": launches["topk"], "max_abs_err": 0.0,
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": main["library_ms"],
+            "stable_sort_ms": main["stable_sort_ms"], "sites": sites}
 
 
 # ---------------------------------------------------------------------------
 # phase 5: where a batch's device time goes
 # ---------------------------------------------------------------------------
 
-def trace_plans(run) -> None:
-    """Device time by operation over one steady batch of each plan and one
-    two-stage scorer call (torch.profiler), beside the unprofiled steady
-    wall. The tiered plan is traced a second time through the earlier route
-    of its fine probe (the survivors' keys gathered into a copy first)."""
+def plan_device_ms(fn) -> dict:
+    """Device busy time a call of ``fn`` (a plan's batch), its top-k
+    kernel's and its sort kernels' parts, and the kernels by self time:
+    ``TRACE_CALLS`` calls under torch.profiler, recorded after one
+    unrecorded window (a window can lose its first call's kernels), and
+    divided by them. ``whole`` says whether the window holds every call:
+    each kernel's count a multiple of the calls (a call runs the same
+    kernels each time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        for _ in range(TRACE_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    # device-side events only: a host op's own row repeats its kernels' time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    n = TRACE_CALLS
+
+    def group(words):
+        es = [e for e in events if any(w in e.key for w in words)]
+        return (sum(e.self_device_time_total for e in es) / 1e3 / n,
+                sum(e.count for e in es) / n)
+
+    rows = sorted(((e.key[:48], e.self_device_time_total / 1e3 / n, e.count / n)
+                   for e in events), key=lambda row: -row[1])
+    (sort_ms, sorts), (topk_ms, topks) = group(("Sort", "sort")), group(TOPK_KERNEL_NAMES)
+    return dict(busy=sum(ms for _, ms, _ in rows), whole=all(e.count % n == 0 for e in events),
+                sort_ms=sort_ms, sorts=sorts, topk_ms=topk_ms, topks=topks, rows=rows)
+
+
+def trace_plans(run) -> None:
+    """Device time by operation a steady batch of each plan and a two-stage
+    scorer call (``plan_device_ms``: ``TRACE_CALLS`` calls after an
+    unrecorded window, divided by them), beside the
+    unprofiled steady wall. The tiered plan is traced a second time through
+    the earlier route of its fine probe (the survivors' keys gathered into a
+    copy first)."""
 
     def trace(name, fn, steady):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        # device-side events only: a host op's own row repeats its kernels' time
-        rows = sorted(((e.key[:48], e.self_device_time_total / 1e3, e.count)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                      key=lambda row: -row[1])
-        busy = sum(ms for _, ms, _ in rows)
+        t = plan_device_ms(fn)
+        busy = t["busy"]
         log(f"trace {name}: device busy {busy:.3f} ms of a {steady:.3f} ms steady call "
-            f"(idle share {max(0.0, 1 - busy / steady):.1%}); by self device time: "
-            + "; ".join(f"{key} {ms:.3f} ms x{n}" for key, ms, n in rows[:8]))
-        return busy
+            f"(idle share {max(0.0, 1 - busy / steady):.1%}; whole calls {t['whole']}); "
+            f"top-k kernel {t['topk_ms']:.3f} ms x{t['topks']:g}, sort kernels "
+            f"{t['sort_ms']:.3f} ms x{t['sorts']:g}; by self device time: "
+            + "; ".join(f"{key} {ms:.3f} ms x{n:g}" for key, ms, n in t["rows"][:8]))
+        return busy, t["sorts"]
 
     busy = {}
     for name, (executor, plan, args) in run["runs"].items():
-        busy[name] = trace(name, lambda: executor.execute(plan, *args), run["steady_ms"][name])
+        busy[name], sorts = trace(name, lambda: executor.execute(plan, *args),
+                                  run["steady_ms"][name])
+        if sorts:
+            raise AssertionError(f"trace {name}: {sorts} sort kernels in a plan's batch")
     model = run["model_run"]["model"]
     trace("two_stage", lambda: predict_scores(model, run["prof"], run["qids"]),
           run["walls"]["two_stage"] * 1e3)
@@ -2136,8 +2368,8 @@ def trace_plans(run) -> None:
         for _ in range(5):
             executor.execute(plan, *args)
         steady = sync_wall(t0) / 5 * 1e3
-        before = trace("tiered_int8 (earlier route: survivors' keys gathered first)",
-                       lambda: executor.execute(plan, *args), steady)
+        before, _ = trace("tiered_int8 (earlier route: survivors' keys gathered first)",
+                          lambda: executor.execute(plan, *args), steady)
     finally:
         stages.tiered_priorities = in_place
     log(f"tiered_int8 device busy: earlier route {before:.3f} ms, keys read in place "
@@ -2145,7 +2377,7 @@ def trace_plans(run) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 3g: the language-model serving path (no FREYJA kernel on it)
+# phase 3g: the language-model serving path (no FREYJA kernel but the router's top-k)
 # ---------------------------------------------------------------------------
 
 def _lm_tokens(cfg, b: int, s: int, seed: int, dev) -> torch.Tensor:
@@ -2402,7 +2634,7 @@ def lm_path(dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3h: the language-model training path (no FREYJA kernel on it)
+# phase 3h: the language-model training path (no FREYJA kernel but the router's top-k)
 # ---------------------------------------------------------------------------
 
 def _launch_train(argv) -> tuple:
@@ -2734,7 +2966,7 @@ def lm_train_path(dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3i: the sharded language-model path (no FREYJA kernel on it)
+# phase 3i: the sharded language-model path (no FREYJA kernel but the router's top-k)
 # ---------------------------------------------------------------------------
 
 def _placed(cfg, model, mesh, zero1: bool = True):
@@ -3063,17 +3295,17 @@ def _held_bytes(tensors) -> int:
 def plain_discovery(z, w, cids, tids, zq, wq, tq, qid, g, k: int, chunk: int):
     """The ``all`` pipeline with the plain scorer over column chunks of at
     most ``chunk`` (the unchunked plain scorer would hold (Q, N, 23) float32
-    features), each chunk's stable top-k merged by ``topk_stable``: the
+    features), each chunk's plain top-k merged by :func:`plain_topk`: the
     global top-k, ties to the lower column id."""
     scores, ids = [], []
     for lo in range(0, z.shape[0], chunk):
         sl = slice(lo, lo + chunk)
         s = ref.fused_score_ref(zq, wq, z[sl], w[sl], *g)
         s = torch.where(stages.exclusion_mask(cids[sl], tids[sl], tq, qid), float("-inf"), s)
-        sc, i = stages.merge_topk(s, cids[sl], k)
+        sc, i = plain_merge(s, cids[sl], k)
         scores.append(sc)
         ids.append(i)
-    sc, pos = stages.topk_stable(torch.cat(scores, 1), k)
+    sc, pos = plain_topk(torch.cat(scores, 1), k)
     return sc, torch.gather(torch.cat(ids, 1), 1, pos)
 
 
@@ -3216,11 +3448,12 @@ def dry_path(dev, smi: str) -> dict:
     fit one H100."""
     out_dir = tempfile.mkdtemp(prefix="dryrun_")
     try:
-        a, counts = counted("dry run discovery", ("fused_score",),
+        a, counts = counted("dry run discovery", ("fused_score", "topk"),
                             lambda: dry_discovery(dev, smi, out_dir))
-        if any(v for name, v in counts.items() if name != "fused_score"):
+        if any(v for name, v in counts.items() if name not in ("fused_score", "topk")):
             raise AssertionError(f"3j a) launched other kernels: {counts}")
         a["launches"] = counts["fused_score"]
+        a["topk_launches"] = counts["topk"]
         long = {}
         for arch in DRY_LONG:
             long[arch], c = counted(f"dry run {arch}", (), lambda: dry_long(arch, dev, smi,
@@ -3250,6 +3483,15 @@ def counted(path: str, required, drive):
     return out, counts
 
 
+def router_only(path: str, counts: dict) -> None:
+    """The LM paths launch no FREYJA kernel but the top-k of the MoE
+    families' router."""
+    other = {k: v for k, v in counts.items() if v and k != "topk"}
+    if other:
+        raise AssertionError(f"the {path} path launched FREYJA kernels other than the "
+                             f"router's topk: {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available; this script "
@@ -3275,28 +3517,35 @@ def main() -> int:
     # phase 2: ragged shapes, and two threads with two ensembles
     t0 = time.perf_counter()
     check_ragged(dev)
+    topk_cases = check_topk(dev)
     concurrent = check_concurrent(dev)
-    log(f"phase 2: kernels equal their plain versions at ragged shapes, and under "
-        f"concurrent calls with two ensembles {concurrent} ({time.perf_counter() - t0:.2f} s)")
+    log(f"phase 2: kernels equal their plain versions at ragged shapes ({topk_cases} top-k "
+        f"cases), and under concurrent calls with two ensembles {concurrent} "
+        f"({time.perf_counter() - t0:.2f} s)")
 
     # phase 3: each path counted on its own
-    run, discovery = counted("discovery", ("fused_score", "minhash", "lsh_probe"),
+    run, discovery = counted("discovery", ("fused_score", "minhash", "lsh_probe", "topk"),
                              lambda: main_path(dev))
     _, scale = counted("scale", ("lsh_probe", "lsh_probe_gathered", "fused_score_q",
-                                 "fused_score"), lambda: scale_path(run, dev))
+                                 "fused_score", "topk"), lambda: scale_path(run, dev))
     _, model = counted("model", ("profile_distance", "gbdt_infer", "quality_cdf"),
                        lambda: model_path(run, dev))
     served, serve_counts = counted(
         "serve", ("fused_score", "fused_score_q", "minhash", "lsh_probe",
-                  "lsh_probe_gathered"), lambda: serve_path(run, dev))
+                  "lsh_probe_gathered", "topk"), lambda: serve_path(run, dev))
     fleet_run, fleet_counts = counted(
-        "fleet", ("fused_score", "lsh_probe", "minhash"), lambda: fleet_path(run, served, dev))
+        "fleet", ("fused_score", "lsh_probe", "minhash", "topk"),
+        lambda: fleet_path(run, served, dev))
     sharded, sharded_counts = counted(
-        "sharded", ("fused_score", "lsh_probe"), lambda: sharded_path(run, dev))
+        "sharded", ("fused_score", "lsh_probe", "topk"), lambda: sharded_path(run, dev))
     sharded_geometry = dict(_build.geometry_counts["fused_score"])
     if not all(sharded_geometry.values()):
         raise AssertionError(f"sharded path: fused_score launches by geometry {sharded_geometry}")
     counts = {"discovery": discovery, "scale": scale, "model": model}
+    log(f"topk launches by path: " + ", ".join(
+        f"{path} {c['topk']}" for path, c in (*counts.items(), ("serve", serve_counts),
+                                             ("fleet", fleet_counts),
+                                             ("sharded", sharded_counts))))
     launches = {k: counts[PATH_OF[k]][k] for k in _build.KERNELS}
     t0 = time.perf_counter()
     check_main_path(run, dev)
@@ -3329,9 +3578,9 @@ def main() -> int:
         f"{sharded_geometry}")
 
     # phase 3g: the language-model serving path, which has no FREYJA kernel
-    lm, lm_counts = counted("lm", (), lambda: lm_path(dev, smi))
-    if any(lm_counts.values()):
-        raise AssertionError(f"the lm path launched FREYJA kernels: {lm_counts}")
+    # but the MoE router's top-k
+    lm, lm_counts = counted("lm", ("topk",), lambda: lm_path(dev, smi))
+    router_only("lm", lm_counts)
     a = lm["serve"]
     log(f"lm summary ({smi}): {LM_ARCH} bf16, batch {LM_BATCH}: prefill {a['prefill_ms']:.3f} "
         f"ms, decode {a['steady_ms']:.3f} ms a step, {a['tok_s']:.1f} tokens/s, "
@@ -3343,9 +3592,9 @@ def main() -> int:
         + f"; card vs host {lm['host']['ratio']:.3f}; launches {lm_counts}")
 
     # phase 3h: the language-model training path, which has no FREYJA kernel
-    trained, train_counts = counted("train", (), lambda: lm_train_path(dev, smi))
-    if any(train_counts.values()):
-        raise AssertionError(f"the train path launched FREYJA kernels: {train_counts}")
+    # but the MoE router's top-k
+    trained, train_counts = counted("train", ("topk",), lambda: lm_train_path(dev, smi))
+    router_only("train", train_counts)
     t = trained["train"]
     log(f"train summary ({smi}): {LM_ARCH} {t['n_params'] / 1e6:.1f}M params, bf16, batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}: {t['steady_ms']:.3f} ms a step, {t['tok_s']:.1f} "
@@ -3358,10 +3607,10 @@ def main() -> int:
         f"{trained['example']['last']:.3f}; launches {train_counts}")
 
     # phase 3i: the sharded language-model path, which has no FREYJA kernel
-    shard_run, shard_counts = counted("sharded lm", (),
+    # but the MoE router's top-k
+    shard_run, shard_counts = counted("sharded lm", ("topk",),
                                       lambda: lm_sharded_path(dev, smi, trained["train"]))
-    if any(shard_counts.values()):
-        raise AssertionError(f"the sharded lm path launched FREYJA kernels: {shard_counts}")
+    router_only("sharded lm", shard_counts)
     a = shard_run["train"]
     log(f"sharded lm summary ({smi}): {LM_ARCH} bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ} on a "
         f"(2, 2) mesh of copies of the card (tp, ZeRO-1): {a['steady_ms']:.3f} ms a step, "
@@ -3382,7 +3631,7 @@ def main() -> int:
     dry = dry_path(dev, smi)
     a = dry["discovery"]
     log(f"dry run summary ({smi}): discovery cell {a['wall_ms']:.3f} ms, {a['launches']} "
-        f"fused_score launches, placed/predicted {a['placed'] / a['argument_bytes']:.4f}, "
+        f"fused_score and {a['topk_launches']} topk launches, placed/predicted {a['placed'] / a['argument_bytes']:.4f}, "
         f"peak/predicted {a['max_memory_allocated'] / a['peak_bytes']:.3f}, idle share "
         f"{a['trace']['idle']:.1%}; "
         + "; ".join(f"{arch} long_500k decode {v['ms']:.3f} ms (bound {v['bound_ms']:.4f} ms, "
@@ -3400,6 +3649,8 @@ def main() -> int:
     for row in kernels:
         if row["name"] == "fused_score":
             row["dryrun_cell"] = {k: a[k] for k in ("launches", "wall_ms", "max_memory_allocated")}
+        if row["name"] == "topk":
+            row["dryrun_cell"] = {"launches": a["topk_launches"]}
     log(f"phase 4: {time.perf_counter() - t0:.2f} s")
 
     # phase 5: device time by operation, per plan
@@ -3413,5 +3664,62 @@ def main() -> int:
     return 0
 
 
+def load_checkout(root: Path):
+    """Another checkout's ``chip_smoke`` module, over that checkout's
+    ``src``: this script's ``repro_torch`` modules are dropped from the
+    import cache and its ``src`` from the path first, so the kernels,
+    stages and executor the module drives are that checkout's."""
+    import importlib.util
+    own = str(Path(__file__).resolve().parent / "src")
+    sys.path[:] = [p for p in sys.path if p != own]
+    for mod in [m for m in sys.modules if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[mod]
+    spec = importlib.util.spec_from_file_location("chip_smoke_checkout", root / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def plans_main(root: str) -> int:
+    """``--plans [ROOT]``: the six plans of phase 3 (a, b) and 3j a) of the
+    checkout at ROOT (this one by default), built and driven by that
+    checkout's own ``chip_smoke.py`` and measured by this one: each plan's
+    steady wall (the mean of ``PLANS_REPS`` synchronized batches after a
+    first) and its device busy time, top-k and sort parts a batch
+    (``plan_device_ms``, phase 5's measure); 3j a)'s wall and
+    ``max_memory_allocated``. Run it for a parent checkout and this one in
+    one call on one card (parent, change, change, parent). Prints a line a
+    plan and one JSON line."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke --plans: no CUDA device is available")
+    root = Path(root).resolve()
+    here = Path(__file__).resolve().parent
+    cs = sys.modules[__name__] if root == here else load_checkout(root)
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    cs._build.build()
+    run = cs.main_path(dev, reps=PLANS_REPS)
+    cs.scale_path(run, dev, reps=PLANS_REPS)
+    out = {}
+    for name, (executor, plan, args) in run["runs"].items():
+        t = plan_device_ms(lambda: executor.execute(plan, *args))
+        out[name] = {"wall_ms": run["steady_ms"][name], "busy_ms": t["busy"],
+                     "topk_ms": t["topk_ms"], "sort_ms": t["sort_ms"], "whole": t["whole"]}
+        log(f"plans {root}: {name} steady {run['steady_ms'][name]:.3f} ms a batch, device busy "
+            f"{t['busy']:.4f} ms (top-k kernel {t['topk_ms']:.4f}, sort kernels "
+            f"{t['sort_ms']:.4f}; whole calls {t['whole']})")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plans_") as out_dir:
+        cell = cs.dry_discovery(dev, smi, out_dir)
+    out["3j a)"] = {k: cell[k] for k in ("wall_ms", "max_memory_allocated")}
+    log(f"plans {root}: 3j a) {cell['wall_ms']:.3f} ms a call, max_memory_allocated "
+        f"{cell['max_memory_allocated']} (the dry run's predicted peak {cell['peak_bytes']})")
+    print(json.dumps({"root": str(root), "card": smi, "plans": out}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--plans"]:
+        sys.exit(plans_main(sys.argv[2] if len(sys.argv) > 2 else "."))
     sys.exit(main())

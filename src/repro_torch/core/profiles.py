@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core import features as FT
 from repro_torch.device import hashes_to_numpy, hashes_to_torch, resolve_device
+from repro_torch.kernels import ops
 
 _BIG = 3.4e38
 
@@ -151,8 +152,8 @@ def compute_profiles_batch(values, char_len, word_cnt, n_rows):
 
     # ---- top-10 frequent values + first-word proxy ----
     kk = min(FT.N_FREQ_WORDS, r)
-    order = torch.sort(counts, dim=1, descending=True, stable=True)
-    topc, topi = order.values[:, :kk], order.indices[:, :kk]
+    topi = ops.topk(counts, kk)        # jax.lax.top_k's order: ties to the lower index
+    topc = torch.gather(counts, 1, topi)
     freq_words = torch.where(topc > 0, torch.gather(run_vals, 1, topi),
                              FT.HASH_SENTINEL)
     if kk < FT.N_FREQ_WORDS:

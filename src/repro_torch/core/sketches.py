@@ -98,6 +98,9 @@ def batch_exact_metrics(q_values, q_counts, q_card, q_rows,
     """
     n, kc = c_values.shape
     kq = q_values.shape[1]
+    if q_values.shape[0] == 0:
+        empty = torch.zeros((0, n), dtype=torch.float32, device=c_values.device)
+        return {name: empty.clone() for name in ("j_multi", "k", "jaccard", "containment")}
     step = max(1, _PROBE_ELEMS // max(n * kq, 1))
     inter_multi, inter_set = [], []
     for lo in range(0, q_values.shape[0], step):

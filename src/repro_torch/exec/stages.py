@@ -16,10 +16,13 @@ the same three-stage pipeline over the resident corpus:
 3. **merge** — top-k; on a device grid (``exec/sharded.py``) the two-phase
    merge of :func:`merge_topk_sharded` and :func:`assemble_query_shards`.
 
-Top-k order. ``jax.lax.top_k`` puts the lower index first among equal
-values, and the ``lsh`` stage gives every hit the same priority, so tie
-order decides which columns fill the budget. ``torch.topk`` promises no
-tie order, so every top-k here is a stable descending sort, sliced.
+Top-k order. ``jax.lax.top_k`` orders by the float32 total order (-0.0
+below +0.0, NaNs by their bits at either end) and puts the lower index
+first among equal values; the ``lsh`` stage gives every hit the same
+priority, so tie order decides which columns fill the budget.
+``torch.topk`` promises no tie order, so every top-k here goes through
+:func:`topk_stable`, which keeps that order exactly: ``ops.topk``, the
+exact top-k kernel ``kernels/csrc/topk.cu`` on the card.
 """
 from __future__ import annotations
 
@@ -41,10 +44,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def topk_stable(x: torch.Tensor, k: int):
-    """(values, indices) of the k largest entries per row, ties broken by
-    the lower index — the order of ``jax.lax.top_k``."""
-    order = torch.sort(x, dim=1, descending=True, stable=True)
-    return order.values[:, :k], order.indices[:, :k]
+    """(values, indices) of the k largest entries per row of float32 ``x``
+    (R, N) — ``jax.lax.top_k(x, k)``: the float32 total order, the lower
+    index first among equal bit patterns. The values are ``x``'s own,
+    gathered (their bits and their autograd kept)."""
+    pos = ops.topk(x, k)
+    return x.gather(1, pos), pos
 
 
 def live_count(cids: torch.Tensor) -> torch.Tensor:

@@ -19,9 +19,10 @@ from repro_torch.kernels.minhash import minhash_cuda
 from repro_torch.kernels.profile_distance import (fused_score_cuda, fused_score_q_cuda,
                                                   profile_distance_cuda)
 from repro_torch.kernels.quality_cdf import quality_cdf_cuda
+from repro_torch.kernels.topk import topk_cuda, topk_meta
 
 __all__ = ["fused_score", "fused_score_q", "minhash", "lsh_probe", "lsh_probe_gathered",
-           "profile_distance", "gbdt_infer", "quality_cdf"]
+           "profile_distance", "gbdt_infer", "quality_cdf", "topk"]
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -128,3 +129,21 @@ def quality_cdf(j, k, mu_j, sigma_j, mu_k, sigma_k, lo=0.0, hi=1.0):
         return ref.quality_cdf_ref(j, k, mu_j, sigma_j, mu_k, sigma_k, lo, hi)
     return quality_cdf_cuda(j.contiguous(), k.contiguous(), mu_j, sigma_j, mu_k, sigma_k,
                             lo, hi)
+
+
+def topk(x, k: int):
+    """(R, k) int64 positions of the k largest entries of each row of float32
+    ``x`` (R, N), 0 <= k <= N, in ``jax.lax.top_k``'s order (see
+    ``ref.topk_ref``). The positions carry no autograd; gather the values
+    with them. On ``meta`` (the dry run's traces) the call allocates what
+    the kernel allocates and computes nothing."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"topk: want a float32 (R, N) tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if not 0 <= k <= x.shape[1]:
+        raise ValueError(f"topk: want 0 <= k <= {x.shape[1]}, got {k}")
+    if x.device.type == "meta":
+        return topk_meta(x, k)
+    if not _on_cuda(x, "topk"):
+        return ref.topk_ref(x, k)
+    return topk_cuda(x.detach().contiguous(), k)

@@ -117,6 +117,18 @@ def minhash_jaccard_ref(sig_a, sig_b):
     return (sig_a == sig_b).to(torch.float32).mean(-1)
 
 
+def topk_ref(x, k: int):
+    """(R, k) int64 positions of the k largest entries of each row of float32
+    ``x`` (R, N), in the order of ``jax.lax.top_k``: the float32 total order
+    (-NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN, NaNs by their
+    bits), the lower index first among equal bit patterns. A stable
+    descending sort of the order-preserving int32 key (the bits when
+    non-negative, the bits ^ 0x7FFFFFFF when negative), sliced."""
+    bits = x.detach().contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return torch.sort(key, dim=1, descending=True, stable=True).indices[:, :k]
+
+
 def standardized_bounds(mu: float, sigma: float, lo: float, hi: float):
     """(lo − μ)/σ and (hi − μ)/σ, computed in double and rounded to float32:
     the points where the truncated CDF evaluates Φ at its bounds."""

@@ -690,8 +690,10 @@ def analyze_freyja(mesh, *, bf16_profiles: bool = False) -> dict:
     # ``exec.sharded.build_sharded_pipeline``: ``stages.score_columns``
     # (the word-hash bit-views ``ops.fused_score`` makes and its (Q, C_l)
     # scores, stood in for here: the kernel has no meta version), then the
-    # exclusion mask and ``stages.merge_topk``'s stable sort, which run as
-    # they are. A change to that branch must be made here too.
+    # exclusion mask and ``stages.merge_topk``, which run as they are: on
+    # meta its top-k allocates the kernel's positions and scratch from the
+    # kernel's own plan (``kernels.topk.topk_meta``). A change to that
+    # branch must be made here too.
     live = LiveBytes()
     with live:
         z = _meta((per, FT.F_NUM), zdt)

@@ -4,7 +4,7 @@
 and ``<<<>>>`` act on the calling thread's current device, not on the
 stream's, so each wrapper makes its tensors' device current around its
 ctypes call (``kernels._build.on_device``). On the host, with the library
-and the guard stubbed, each of the eight wrappers must reach its library
+and the guard stubbed, each of the nine wrappers must reach its library
 only inside the guard and with its tensors' device; on a host with two cards
 (``gpu`` marker), each kernel called with tensors on ``cuda:1`` from a thread
 whose current device is 0 must equal its plain version.
@@ -25,6 +25,7 @@ from repro_torch.kernels.minhash import make_permutations, minhash_cuda
 from repro_torch.kernels.profile_distance import (fused_score_cuda, fused_score_q_cuda,
                                                   profile_distance_cuda)
 from repro_torch.kernels.quality_cdf import quality_cdf_cuda
+from repro_torch.kernels.topk import topk_cuda
 from test_torch_kernels import (_gathered_keys, _gbdt, _probe_keys, _profiles, _quantized,
                                 _torch_gbdt)
 
@@ -47,6 +48,7 @@ def _cases(device):
     x = t(r.normal(size=(1000, FT.F_DIST)).astype(np.float32))
     cdf = (t(r.uniform(-0.1, 0.6, (4097,)).astype(np.float32)),
            t(r.uniform(-0.1, 1.1, (4097,)).astype(np.float32)), 0.25, 0.19, 0.44, 0.28, 0.0, 1.0)
+    scores = t(r.normal(size=(5, 10_000)).astype(np.float32))
     return {
         "fused_score": (lambda: ops.fused_score(*score, g),
                         lambda: ref.fused_score_ref(*score, *g)),
@@ -60,6 +62,7 @@ def _cases(device):
                              lambda: ref.profile_distance_ref(*score)),
         "gbdt_infer": (lambda: ops.gbdt_infer(x, g), lambda: ref.gbdt_infer_ref(x, *g)),
         "quality_cdf": (lambda: ops.quality_cdf(*cdf), lambda: ref.quality_cdf_ref(*cdf)),
+        "topk": (lambda: ops.topk(scores, 10), lambda: ref.topk_ref(scores, 10)),
     }
 
 
@@ -96,6 +99,7 @@ def _wrapper_calls():
         "gbdt_infer": lambda: gbdt_infer_cuda(x, feats, thrs, leaves, base),
         "quality_cdf": lambda: quality_cdf_cuda(j, j.clone(), 0.25, 0.19, 0.44, 0.28,
                                                 0.0, 1.0),
+        "topk": lambda: topk_cuda(x, 5),
     }
 
 

@@ -67,7 +67,7 @@ import torch
 from repro_torch.core import features as FT
 from repro_torch.core.predictor import gbdt_to_torch
 from repro_torch.device import from_bits, hashes_to_torch, resolve_device, to_bits
-from repro_torch.exec import stages
+from repro_torch.exec import stages, tracing
 from repro_torch.exec.plan import QueryPlan
 from repro_torch.exec.sharded import (PAD_BITS, PAD_FILL, build_sharded_pipeline,
                                       place_sharded_corpus)
@@ -477,7 +477,9 @@ class Executor:
         table ids to exclude (-1 disables); ``qid`` (Q,) global column id
         of resident queries (-1 for external); ``qkeys`` (Q, B) uint32 LSH
         band keys, required by pruned plans; ``qcoarse`` (Q, S) super-band
-        digest keys, required by tiered plans. Returns numpy
+        digest keys, required by tiered plans. The calling thread's active
+        :class:`~repro_torch.exec.tracing.Record`, if any, takes the stages'
+        spans, their device intervals and the batch's counters. Returns numpy
         ``(scores (Q, k), ids (Q, k), n_scored (Q,))``.
         """
         if self._closed:
@@ -517,8 +519,9 @@ class Executor:
         if first and self._events is not None:
             self._events.publish("compile_begin", plan=plan.kind,
                                  grid=list(plan.grid), n_queries=q, k=plan.k)
+        tr = tracing.current()
         t0 = time.perf_counter()
-        sc, ids, n, tier = self._run(plan, zq, wq, tq, qid, qkeys, qcoarse)
+        sc, ids, n, tier = self._run(plan, zq, wq, tq, qid, qkeys, qcoarse, tr)
         if first:
             wall_ms = (time.perf_counter() - t0) * 1e3
             self._tls.compile_ms = wall_ms
@@ -527,6 +530,9 @@ class Executor:
                                      grid=list(plan.grid), n_queries=q,
                                      k=plan.k, ms=wall_ms)
         self._tls.tier_stats = tier
+        if tier is not None:
+            tr.count("digest_hits", tier[0].sum())
+            tr.count("survivors", tier[1].sum())
         if tier is not None and self._events is not None:
             n_hits, n_surv = tier
             self._events.publish(
@@ -541,35 +547,50 @@ class Executor:
                 survivor_budget=plan.survivor_budget, scored_mean=float(n.mean()))
         return sc, ids, n
 
-    def _run(self, plan: QueryPlan, zq, wq, tq, qid, qkeys, qcoarse):
+    def _run(self, plan: QueryPlan, zq, wq, tq, qid, qkeys, qcoarse, tr=tracing.NULL):
         """The pipeline itself: numpy ``(scores, ids, n_scored, tier)``, with
         ``tier`` the tiered plan's (n_hits, n_survivors) or None. Every
-        result is on the host when it returns."""
+        result is on the host when it returns. ``tr`` takes the stages:
+        ``upload``, the plan's own, ``rerank`` over a quantized corpus, and
+        ``download``, whose end, on the synchronized stream, anchors the
+        device times."""
         dev = self.device
-        zq = torch.from_numpy(np.asarray(zq, np.float32)).to(dev)
-        wq = hashes_to_torch(wq, dev)
-        tq = torch.from_numpy(np.asarray(tq, np.int64)).to(dev)
-        qid = torch.from_numpy(np.asarray(qid, np.int64)).to(dev)
+        local = not plan.sharded
+        with tr.stage("upload", defer=True) as up:
+            host = [torch.from_numpy(np.asarray(zq, np.float32)), _host_hashes(wq),
+                    torch.from_numpy(np.asarray(tq, np.int64)),
+                    torch.from_numpy(np.asarray(qid, np.int64))]
+            if local and plan.candidates != "all":
+                host.append(_host_hashes(qkeys))
+            if local and plan.candidates == "tiered":
+                host.append(_host_hashes(qcoarse))
+            up.begin()
+            zq, wq, tq, qid, *keys = [h.to(dev) for h in host]
+            keys = [to_bits(k) for k in keys]
+            tr.count("h2d_bytes", sum(h.nbytes for h in host))
         tier = None
         if plan.sharded:
-            sc, ids, n = self._run_sharded(plan, zq, wq, tq, qid, qkeys)
+            with tr.stage("sharded"):
+                sc, ids, n = self._run_sharded(plan, zq, wq, tq, qid, qkeys)
         elif plan.candidates == "all":
-            sc, ids, n = self._local_all(zq, wq, tq, qid, **self._local_spec(plan))
+            sc, ids, n = self._local_all(zq, wq, tq, qid, **self._local_spec(plan), tr=tr)
         elif plan.candidates == "tiered":
             sc, ids, n, *tier = self._local_tiered(
-                zq, wq, to_bits(hashes_to_torch(qkeys, dev)),
-                to_bits(hashes_to_torch(qcoarse, dev)), tq, qid, **self._local_spec(plan))
+                zq, wq, keys[0], keys[1], tq, qid, **self._local_spec(plan), tr=tr)
         else:
             sc, ids, n = self._local_pruned(
-                plan.candidates, zq, wq, to_bits(hashes_to_torch(qkeys, dev)), tq, qid,
-                **self._local_spec(plan))
+                plan.candidates, zq, wq, keys[0], tq, qid, **self._local_spec(plan), tr=tr)
         if self._fp32_rows is not None:
-            sc, ids = self._rescore(zq, wq, sc, ids, plan.k)
-        sc, ids = pad_topk(sc.cpu().numpy(), ids.to(torch.int32).cpu().numpy(),
-                           plan.k)
-        if tier is not None:              # (n_hits, n_survivors), read after the scan
-            tier = tuple(t.to(torch.int32).cpu().numpy() for t in tier)
-        return sc, ids, n.to(torch.int32).cpu().numpy(), tier
+            with tr.stage("rerank") as st:
+                sc, ids = self._rescore(zq, wq, sc, ids, plan.k, st, tr)
+        with tr.stage("download", anchor=True):
+            out = [sc.cpu(), ids.to(torch.int32).cpu(), n.to(torch.int32).cpu()]
+            if tier is not None:          # (n_hits, n_survivors), read after the scan
+                out += [t.to(torch.int32).cpu() for t in tier]
+            tr.count("d2h_bytes", sum(t.nbytes for t in out))
+        out = [t.numpy() for t in out]
+        sc, ids = pad_topk(out[0], out[1], plan.k)
+        return sc, ids, out[2], (tuple(out[3:]) if tier is not None else None)
 
     def last_tier_stats(self):
         """``(n_hits (Q,), n_survivors (Q,))`` of this thread's most recent
@@ -598,42 +619,58 @@ class Executor:
         return stages.score_columns(zq, wq, self._z[pos], self._w[pos],
                                     self._gbdt, self._zscale)
 
-    def _local_all(self, zq, wq, tq, qid, k: int):
-        s = self._score(zq, wq)
-        s = torch.where(stages.exclusion_mask(self._cids, self._tids, tq, qid),
-                        float("-inf"), s)
-        sc, ids = stages.merge_topk(s, self._cids, k)
-        return sc, ids, stages.live_count(self._cids).expand(zq.shape[0])
+    def _local_all(self, zq, wq, tq, qid, k: int, tr=tracing.NULL):
+        with tr.stage("score"):
+            s = self._score(zq, wq)
+        with tr.stage("mask"):
+            s = torch.where(stages.exclusion_mask(self._cids, self._tids, tq, qid),
+                            float("-inf"), s)
+        with tr.stage("merge"):
+            sc, ids = stages.merge_topk(s, self._cids, k)
+            n = stages.live_count(self._cids).expand(zq.shape[0])
+        return sc, ids, n
 
-    def _local_pruned(self, kind, zq, wq, qkeys, tq, qid, k: int, budget: int):
-        zf = dequantize(self._z, self._zscale)
-        prio = stages.candidate_priorities(kind, zq, qkeys, zf, self._ckeys,
-                                           self._cids, self._tids, tq, qid)
-        pos, valid = stages.gather_candidates(prio, budget)
-        s = torch.where(valid, self._score(zq, wq, pos), float("-inf"))
-        sc, ids = stages.merge_topk(s, self._cids[pos], k)
-        return sc, ids, valid.sum(1)
+    def _local_pruned(self, kind, zq, wq, qkeys, tq, qid, k: int, budget: int,
+                      tr=tracing.NULL):
+        with tr.stage("prune"):
+            zf = dequantize(self._z, self._zscale)
+            prio = stages.candidate_priorities(kind, zq, qkeys, zf, self._ckeys,
+                                               self._cids, self._tids, tq, qid)
+            pos, valid = stages.gather_candidates(prio, budget)
+        with tr.stage("score"):
+            s = torch.where(valid, self._score(zq, wq, pos), float("-inf"))
+        with tr.stage("merge"):
+            sc, ids = stages.merge_topk(s, self._cids[pos], k)
+            n = valid.sum(1)
+        return sc, ids, n
 
     def _local_tiered(self, zq, wq, qkeys, qcoarse, tq, qid, k: int, budget: int,
-                      survivor_budget: int):
+                      survivor_budget: int, tr=tracing.NULL):
         """Coarse digest scan over the whole lake, then the fine probe, the
         proxy and the scorer over the gathered survivors only. The proxy
         over the (dequantized) resident sidecar fills survivor slots the
         digest left empty with profile-nearest columns."""
-        zf = dequantize(self._z, self._zscale)
-        # -||zq - z||² up to a per-query constant: 2·zq@zᵀ - ||z||²
-        fill = (2.0 * zq) @ zf.T - (zf * zf).sum(1)[None]
-        pos, valid, n_hits, n_surv = stages.tiered_survivors(
-            qcoarse, self._coarse, self._cids, self._tids, tq, qid,
-            survivor_budget=survivor_budget, block_c=self.survivor_block, proxy=fill)
-        # the fine probe reads the survivors' band keys in place through pos
-        prio = stages.tiered_priorities(zq, qkeys, dequantize(self._z[pos], self._zscale),
-                                        self._ckeys, valid, pos=pos)
-        pos2, valid2 = stages.gather_candidates(prio, budget)
-        gpos = torch.gather(pos, 1, pos2)                 # (Q, M) lake columns
-        s = torch.where(valid2, self._score(zq, wq, gpos), float("-inf"))
-        sc, ids = stages.merge_topk(s, self._cids[gpos], k)
-        return sc, ids, valid2.sum(1), n_hits, n_surv
+        with tr.stage("coarse"):
+            with tr.stage("fill"):
+                zf = dequantize(self._z, self._zscale)
+                # -||zq - z||² up to a per-query constant: 2·zq@zᵀ - ||z||²
+                fill = (2.0 * zq) @ zf.T - (zf * zf).sum(1)[None]
+            pos, valid, n_hits, n_surv = stages.tiered_survivors(
+                qcoarse, self._coarse, self._cids, self._tids, tq, qid,
+                survivor_budget=survivor_budget, block_c=self.survivor_block, proxy=fill,
+                stage=tr.stage)
+        with tr.stage("fine"):
+            # the fine probe reads the survivors' band keys in place through pos
+            prio = stages.tiered_priorities(zq, qkeys, dequantize(self._z[pos], self._zscale),
+                                            self._ckeys, valid, pos=pos)
+            pos2, valid2 = stages.gather_candidates(prio, budget)
+            gpos = torch.gather(pos, 1, pos2)                 # (Q, M) lake columns
+        with tr.stage("score"):
+            s = torch.where(valid2, self._score(zq, wq, gpos), float("-inf"))
+        with tr.stage("merge"):
+            sc, ids = stages.merge_topk(s, self._cids[gpos], k)
+            n = valid2.sum(1)
+        return sc, ids, n, n_hits, n_surv
 
     # -- sharded plans ------------------------------------------------------
 
@@ -711,16 +748,32 @@ class Executor:
                                           tq[idx], qid[idx], keys, out=self.device)
         return sc[:q], ids[:q], n[:q]
 
-    def _rescore(self, zq, wq, sc, ids, k: int):
+    def _rescore(self, zq, wq, sc, ids, k: int, stage, tr):
         """Gather the scan's (Q, R) candidates' float32 rows from the host
         source and re-rank them exactly with the fused kernel. R is a small
-        multiple of k, so the cost does not grow with the lake."""
-        # clip to live rows, not the padded corpus: the float32 source may be
-        # an unpadded view (-1 -> row 0, already masked by the scan's -inf)
-        safe = np.clip(ids.cpu().numpy(), 0, self.n_live - 1)
-        zg = torch.from_numpy(np.asarray(self._fp32_rows(safe), np.float32)).to(self.device)
-        wg = self._w[torch.from_numpy(safe).to(self.device)]
+        multiple of k, so the cost does not grow with the lake. The host
+        round trip is ``stage``'s ``roundtrip`` child, outside its device
+        time: the wait for the scan's ids (the batch's first synchronization),
+        their download, the host gather of their float32 rows and the upload."""
+        with stage.host("roundtrip"):
+            ids_h = ids.cpu().numpy()
+            # clip to live rows, not the padded corpus: the float32 source may be
+            # an unpadded view (-1 -> row 0, already masked by the scan's -inf)
+            safe = np.clip(ids_h, 0, self.n_live - 1)
+            rows = torch.from_numpy(np.asarray(self._fp32_rows(safe), np.float32))
+            pos = torch.from_numpy(safe)
+            zg, pos_d = rows.to(self.device), pos.to(self.device)
+        wg = self._w[pos_d]
+        tr.count("d2h_bytes", ids_h.nbytes)
+        tr.count("h2d_bytes", rows.nbytes + pos.nbytes)
+        tr.count("rerank_rows", ids_h.size)
         return _rescore_exact(zq, wq, zg, wg, self._gbdt, sc, ids, k)
+
+
+def _host_hashes(a) -> torch.Tensor:
+    """uint32 hashes or keys -> an int64 host tensor (``hashes_to_torch``'s
+    host half)."""
+    return torch.from_numpy(np.asarray(a, np.uint32).astype(np.int64))
 
 
 def _bits(a) -> np.ndarray:

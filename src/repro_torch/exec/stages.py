@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.exec import tracing
 from repro_torch.kernels import ops
 
 CANDIDATE_KINDS = ("all", "lsh", "hybrid", "tiered")
@@ -89,7 +90,8 @@ def candidate_priorities(kind: str, zq, qkeys, z, ckeys, cids, tids, tq, qid):
 
 
 def tiered_survivors(qcoarse, coarse, cids, tids, tq, qid, *,
-                     survivor_budget: int, block_c: int = 32, proxy=None):
+                     survivor_budget: int, block_c: int = 32, proxy=None,
+                     stage=tracing.NULL.stage):
     """Coarse pass of the tiered stage: pick survivor blocks.
 
     Probes the (C, S) super-band digest with the (Q, S) coarse query keys,
@@ -102,24 +104,30 @@ def tiered_survivors(qcoarse, coarse, cids, tids, tq, qid, *,
     Returns ``(pos, valid, n_hits, n_survivors)``: gather positions (Q, M'),
     their validity, and per query the direct coarse hits and the
     digest-eligible survivor columns (proxy fill does not count).
+    ``stage(name)`` opens each step's span (``probe``, ``priority``,
+    ``select``, ``count``; :meth:`repro_torch.exec.tracing.Record.stage`).
     """
     c = coarse.shape[0]
-    hit = ops.lsh_probe(qcoarse, coarse)                          # (Q, C)
-    nb = -(-c // block_c)
-    hp = torch.nn.functional.pad(hit, (0, nb * block_c - c))
-    block_hit = (hp.reshape(hit.shape[0], nb, block_c) > 0).any(-1)
-    block_hit = block_hit.repeat_interleave(block_c, dim=1)[:, :c]  # (Q, C)
-    excl = exclusion_mask(cids, tids, tq, qid)
-    if proxy is None:
-        prio = torch.where(block_hit, 1.0, float("-inf")) + hit.to(torch.float32)
-    else:
-        prio = (torch.where(block_hit, _LSH_PRIORITY_BOOST, 0.0)
-                + hit.to(torch.float32)
-                + proxy / (1.0 + torch.abs(proxy)))
-    prio = torch.where(excl, float("-inf"), prio)
-    pos, valid = gather_candidates(prio, survivor_budget)
-    n_hits = ((hit > 0) & ~excl).sum(1)
-    n_survivors = (block_hit & ~excl).sum(1)
+    with stage("probe"):
+        hit = ops.lsh_probe(qcoarse, coarse)                          # (Q, C)
+    with stage("priority"):
+        nb = -(-c // block_c)
+        hp = torch.nn.functional.pad(hit, (0, nb * block_c - c))
+        block_hit = (hp.reshape(hit.shape[0], nb, block_c) > 0).any(-1)
+        block_hit = block_hit.repeat_interleave(block_c, dim=1)[:, :c]  # (Q, C)
+        excl = exclusion_mask(cids, tids, tq, qid)
+        if proxy is None:
+            prio = torch.where(block_hit, 1.0, float("-inf")) + hit.to(torch.float32)
+        else:
+            prio = (torch.where(block_hit, _LSH_PRIORITY_BOOST, 0.0)
+                    + hit.to(torch.float32)
+                    + proxy / (1.0 + torch.abs(proxy)))
+        prio = torch.where(excl, float("-inf"), prio)
+    with stage("select"):
+        pos, valid = gather_candidates(prio, survivor_budget)
+    with stage("count"):
+        n_hits = ((hit > 0) & ~excl).sum(1)
+        n_survivors = (block_hit & ~excl).sum(1)
     return pos, valid, n_hits, n_survivors
 
 

@@ -60,6 +60,7 @@ from repro_torch.core import features as FT
 from repro_torch.core.ingest import ingest_string_columns
 from repro_torch.core.predictor import JoinQualityModel
 from repro_torch.device import resolve_device
+from repro_torch.exec import tracing
 from repro_torch.exec.executor import Executor, pad_rows
 from repro_torch.exec.plan import DEFAULT_BATCH_BUCKETS, MODES, Planner, PlannerConfig
 from repro_torch.kernels.profile_distance import quantize_profiles_streamed
@@ -110,7 +111,9 @@ class EngineConfig:
     # standard ServiceMetrics registry (engine.metrics) — every serving
     # component publishes into it and `discover --metrics-port` / a
     # MetricsServer can export it.  False (default) keeps the hot path
-    # event-free; per-request phase traces are recorded either way
+    # event-free; per-request phase traces are recorded either way.  True
+    # also turns the tracer's device times and profiler ranges on (as a
+    # running torch.profiler does; see repro_torch.exec.tracing)
     metrics: bool = False
     event_capacity: int = 8192
     # warmup: False = first-contact costs on the serving path; True /
@@ -206,8 +209,11 @@ class DiscoveryEngine:
         self._counters = {"queries": 0, "batches": 0, "cache_hits": 0,
                           "cache_misses": 0, "cache_admitted": 0,
                           "cache_rejected": 0, "cache_evicted": 0,
-                          "scored_columns": 0, "scan_columns": 0,
+                          "scored_columns": 0,
                           "refreshes": 0, "refreshes_coalesced": 0}
+        # one span tree per batch (scheduler -> engine -> executor stages),
+        # folded under _slock; see repro_torch.exec.tracing
+        self.tracer = tracing.Tracer()
         self._plan_counts: dict[str, int] = {}
         self.last_plan = None
         self._slock = threading.Lock()
@@ -652,7 +658,7 @@ class DiscoveryEngine:
         return self.query_batch([request])[0]
 
     def query_batch(self, requests: list[DiscoveryRequest], *,
-                    trace_ids: list[str] | None = None
+                    trace_ids: list[str] | None = None, record=None
                     ) -> list[DiscoveryResponse]:
         """Serve one micro-batch against one pinned snapshot version.
 
@@ -664,27 +670,61 @@ class DiscoveryEngine:
         delivered the batch.  ``trace_ids`` threads the scheduler's
         per-submission ids through; direct callers get fresh ids (or the
         request's own ``trace_id``) and a trace whose spans sum to
-        ``compute_ms``."""
-        t0 = time.perf_counter()
+        ``compute_ms``.  ``record`` is the scheduler's
+        :class:`~repro_torch.exec.tracing.Record` of the formed batch,
+        whose open ``batch`` span the engine's phases go under; without
+        one the engine opens a record of its own."""
+        t0 = tracing.now()
         if trace_ids is None:
             trace_ids = [r.trace_id or EV.mint_trace_id() for r in requests]
-        self._maybe_follow()
-        st = self._pin()
+        rec = self.tracer.begin() if record is None else record
+        rec.trace_ids = trace_ids
+        rec.arm(self.config.metrics or tracing.profiling(), self.device)
+        first = len(rec.names)
+        root = rec.open("batch", t0) if record is None else None
+        phase = rec.open("pin", t0)
         try:
-            return self._query_pinned(st, requests, t0, trace_ids)
-        finally:
-            self._release(st)
+            self._maybe_follow()
+            st = self._pin()
+            try:
+                responses, counts = self._query_pinned(st, requests, trace_ids, rec, phase)
+            finally:
+                self._release(st)
+        except BaseException:
+            rec.unwind(first)
+            raise
+        if root is not None:
+            rec.close(root)
+        rec.read_device()
+        with self._slock:                  # one locked fold per batch
+            if counts is not None:
+                n_req, n_todo, scored = counts
+                self._counters["queries"] += n_req
+                self._counters["batches"] += 1
+                self._counters["cache_hits"] += n_req - n_todo
+                self._counters["cache_misses"] += n_todo
+                self._counters["scored_columns"] += scored
+            self.tracer.fold(rec, first)
+        return responses
 
-    def _query_pinned(self, st: _VersionState,
-                      requests: list[DiscoveryRequest], t0: float,
-                      trace_ids: list[str]) -> list[DiscoveryResponse]:
+    def _query_pinned(self, st: _VersionState, requests: list[DiscoveryRequest],
+                      trace_ids: list[str], rec, phase: int):
+        """The batch's responses and its counts ``(requests, misses, scored
+        columns)``, or None where the snapshot is empty. ``phase`` is the
+        open ``pin`` span; the phases that follow it are contiguous, so the
+        per-query shares in each response's trace sum EXACTLY to
+        ``compute_ms``."""
         if st.snapshot.n_columns == 0:
+            rec.close(phase)
             return [DiscoveryResponse(name=r.name, matches=[],
                                       n_candidates=0, trace_id=tid)
-                    for r, tid in zip(requests, trace_ids)]
-        # contiguous phase marks: (phase, t) pairs partition [t0, t_end]
-        # so the per-query span shares sum EXACTLY to compute_ms
-        marks: list[tuple[str, float]] = [("pin", time.perf_counter())]
+                    for r, tid in zip(requests, trace_ids)], None
+        phases = [phase]
+
+        def step(name: str) -> None:
+            phases.append(rec.next(phases[-1], name))
+
+        step("resolve")
         zq, wq, sigq, tq, qid = self._resolve(requests, st)
         keys = [self._cache_key(st, zq[i], wq[i], sigq[i], requests[i])
                 for i in range(len(requests))]
@@ -701,39 +741,41 @@ class DiscoveryEngine:
                     n_candidates=0, cached=True, trace_id=trace_ids[i])
             else:
                 todo.append(i)
-        marks.append(("resolve", time.perf_counter()))
 
         compile_ms = None
         if todo:
+            step("plan")
             scores, ids, ncand, plan = self._rank_rows(
                 zq[todo], wq[todo], sigq[todo], tq[todo], qid[todo], st,
-                marks=marks)
+                step=step, trace=rec)
             compile_ms = st.executor.last_compile_ms()
             # the plan's cost was modeled for the PADDED batch — normalize
             # by that count, not len(todo), or a lone miss looks batch_pad×
             # costlier than the same query served in a full batch
             cost_per_query = (plan.cost.get("total_flops", 0.0)
                               / max(plan.cost.get("n_queries", 1), 1))
-            for row, i in enumerate(todo):
-                matches = self._matches(scores[row], ids[row], st)
-                self._cache_put(keys[i], matches, cost_per_query)
-                responses[i] = DiscoveryResponse(
-                    name=requests[i].name,
-                    matches=self._trim(matches, requests[i]),
-                    n_candidates=int(ncand[row]), trace_id=trace_ids[i])
-                scored += int(ncand[row])
+            with rec.span("matches"):
+                matches = [self._matches(scores[row], ids[row], st)
+                           for row in range(len(todo))]
+            with rec.span("cache"):      # admitted in row order
+                walked = 0
+                for row, i in enumerate(todo):
+                    walked += self._cache_put(keys[i], matches[row], cost_per_query)
+                rec.count("cache_walked", walked)
+            with rec.span("respond"):
+                for row, i in enumerate(todo):
+                    responses[i] = DiscoveryResponse(
+                        name=requests[i].name,
+                        matches=self._trim(matches[row], requests[i]),
+                        n_candidates=int(ncand[row]), trace_id=trace_ids[i])
+                    scored += int(ncand[row])
+            rec.count("scored_columns", scored)
+        else:
+            step("finalize")
 
-        with self._slock:                  # one locked fold per batch
-            self._counters["queries"] += len(requests)
-            self._counters["batches"] += 1
-            self._counters["cache_hits"] += len(requests) - len(todo)
-            self._counters["cache_misses"] += len(todo)
-            self._counters["scored_columns"] += scored
-            self._counters["scan_columns"] += \
-                len(todo) * st.snapshot.n_columns
         if self.events is not None:
-            hits = [trace_ids[i] for i in range(len(requests))
-                    if i not in set(todo)]
+            missed = set(todo)
+            hits = [trace_ids[i] for i in range(len(requests)) if i not in missed]
             if hits:
                 self.events.publish(EV.CACHE_HIT, n=len(hits),
                                     trace_ids=hits, version=st.version)
@@ -741,14 +783,11 @@ class DiscoveryEngine:
                 self.events.publish(EV.CACHE_MISS, n=len(todo),
                                     trace_ids=[trace_ids[i] for i in todo],
                                     version=st.version)
-        t_end = time.perf_counter()
+        t_end = rec.close(phases[-1])
         n = max(len(requests), 1)
-        dt_ms = (t_end - t0) * 1e3 / n
-        spans = []
-        prev = t0
-        for phase, t in marks + [("finalize", t_end)]:
-            spans.append({"phase": phase, "ms": (t - prev) * 1e3 / n})
-            prev = t
+        dt_ms = (t_end - rec.t0[phase]) / 1e6 / n
+        spans = [{"phase": rec.names[j], "ms": (rec.t1[j] - rec.t0[j]) / 1e6 / n}
+                 for j in phases]
         if compile_ms is not None:
             for s in spans:                # annotate, never add a span —
                 if s["phase"] == "execute":  # the sum must stay exact
@@ -757,7 +796,15 @@ class DiscoveryEngine:
             r.compute_ms = dt_ms
             r.latency_ms = r.queue_ms + dt_ms
             r.trace = r.trace + [dict(s) for s in spans]
-        return responses
+        return responses, (len(requests), len(todo), scored)
+
+    def trace_records(self) -> list[dict]:
+        """The last :data:`~repro_torch.exec.tracing.RING` batch records,
+        oldest first, ready for a JSON dump: each span's name, parent index,
+        start and end (ns on the profiler's clock), the stages' device
+        intervals where they were timed, and the batch's counters."""
+        with self._slock:
+            return self.tracer.records()
 
     # -- observability ------------------------------------------------------
 
@@ -768,7 +815,10 @@ class DiscoveryEngine:
         refresh count, live pinned states), the last executed plan with
         its modeled cost, and — when a :class:`RequestScheduler` is
         attached — the scheduler's counters (queue depth, formed-batch
-        size histogram, bucket hits, expirations, sheds)."""
+        size histogram, bucket hits, expirations, sheds).  ``trace`` holds
+        the tracer's totals: per span name its count and total, self and max
+        ms; device ms per stage; device idle ms put down to the host spans
+        that covered it (``execute.idle`` between stages); the counters."""
         # one consistent snapshot: counters, cache occupancy, plan
         # histogram and version lifecycle are all read under the same
         # locks that guard their writers (lock order _slock -> _cache_lock
@@ -783,13 +833,13 @@ class DiscoveryEngine:
             live = len(self._live)
             rs = dict(self._refresh_stats)
             prewarmed = sorted(self._prewarmed)
+            trace = self.tracer.totals()
             with self._cache_lock:     # admission counters live under it
                 c = dict(self._counters)
                 cache_size = len(self._cache)
         out = {
             "queries": c["queries"], "batches": c["batches"],
             "scored_columns": c["scored_columns"],
-            "scan_columns": c["scan_columns"],
             "cache": {
                 "hits": c["cache_hits"], "misses": c["cache_misses"],
                 "admitted": c["cache_admitted"],
@@ -807,6 +857,7 @@ class DiscoveryEngine:
                         "stats_drift": _stats_drift(head),
                         "column_bucket": exec_columns,
                         "prewarmed": prewarmed},
+            "trace": trace,
         }
         if self._scheduler is not None:
             out["scheduler"] = self._scheduler.stats()
@@ -830,12 +881,14 @@ class DiscoveryEngine:
         return -(-max(int(n_queries), 1) // bp) * bp
 
     def _rank_rows(self, zq, wq, sigq, tq, qid,
-                   st: _VersionState | None = None, marks=None):
+                   st: _VersionState | None = None, step=None, trace=None):
         """Plan + execute one padded micro-batch through ``repro_torch.exec``.
 
-        ``marks`` (optional) collects contiguous ``(phase, t)`` trace
-        marks — plan / candidates / execute — for the caller's span
-        accounting."""
+        ``step(name)`` (optional) opens each contiguous phase after the
+        caller's ``plan`` — candidates / execute / finalize — of its span
+        tree; ``trace`` is the batch's record, which the executor's stages
+        go into."""
+        step = step or (lambda name: None)
         st = st if st is not None else self._head
         (zq, wq, sigq, tq, qid), q = pad_rows(
             (zq, wq, sigq, tq, qid),
@@ -849,18 +902,16 @@ class DiscoveryEngine:
         plan = self.planner.plan(n_columns=st.executor.n_columns,
                                  n_queries=pad, mode=self.config.mode,
                                  mesh=self.mesh, grid=self.config.grid)
-        if marks is not None:
-            marks.append(("plan", time.perf_counter()))
+        step("candidates")
         qkeys = (st.lsh.query_keys(sigq) if plan.candidates != "all"
                  else None)
         qcoarse = (st.lsh.coarse_query_keys(sigq)
                    if plan.candidates == "tiered" else None)
-        if marks is not None:
-            marks.append(("candidates", time.perf_counter()))
-        sc, ids, ncand = st.executor.execute(plan, zq, wq, tq, qid,
-                                             qkeys=qkeys, qcoarse=qcoarse)
-        if marks is not None:
-            marks.append(("execute", time.perf_counter()))
+        step("execute")
+        with tracing.active(trace):
+            sc, ids, ncand = st.executor.execute(plan, zq, wq, tq, qid,
+                                                 qkeys=qkeys, qcoarse=qcoarse)
+        step("finalize")
         self.last_plan = plan
         with self._slock:
             self._plan_counts[plan.kind] = \
@@ -993,31 +1044,35 @@ class DiscoveryEngine:
             self._cache.move_to_end(key)
             return hit[0]
 
-    def _cache_put(self, key, matches, cost: float) -> None:
+    def _cache_put(self, key, matches, cost: float) -> int:
         """Cost-aware admission: when full, the cheapest (oldest on ties)
         resident entry is the victim — and a new entry cheaper than every
         resident one is not admitted at all (cheap plans are cheap to
-        recompute; a full-scan result outranks any pruned one)."""
+        recompute; a full-scan result outranks any pruned one). Returns the
+        entries the victim search walked."""
         cap = self.config.cache_entries
         if cap <= 0:
-            return
+            return 0
         with self._cache_lock:
             if key in self._cache:
                 self._cache[key] = (matches, cost)
                 self._cache.move_to_end(key)
-                return
+                return 0
+            walked = 0
             if len(self._cache) >= cap:
                 victim, vcost = None, np.inf
+                walked = len(self._cache)
                 for k_, (_, c_) in self._cache.items():  # oldest-first:
                     if c_ < vcost:                       # ties go oldest
                         victim, vcost = k_, c_
                 if cost < vcost:
                     self._counters["cache_rejected"] += 1
-                    return
+                    return walked
                 del self._cache[victim]
                 self._counters["cache_evicted"] += 1
             self._cache[key] = (matches, cost)
             self._counters["cache_admitted"] += 1
+            return walked
 
 
 def _stats_drift(st: _VersionState) -> float:

@@ -38,8 +38,6 @@ Event taxonomy (the ``type`` strings components publish):
                             n_plans)
 ``warmup_end``              warmup finished (executables, hits/misses,
                             wall_ms)
-``executable_cache_hit``    warmup loaded one executable from the
-                            persistent cache (``remaining`` counts down)
 ``executable_cache_miss``   warmup compiled one executable fresh (a
                             ``compile_begin``/``end`` pair brackets it)
 ``replica_state``           a fleet replica changed lifecycle state
@@ -85,7 +83,6 @@ COARSE_PASS = "coarse_pass"
 FINE_PROBE = "fine_probe"
 WARMUP_BEGIN = "warmup_begin"
 WARMUP_END = "warmup_end"
-EXECUTABLE_CACHE_HIT = "executable_cache_hit"
 EXECUTABLE_CACHE_MISS = "executable_cache_miss"
 REPLICA_STATE = "replica_state"
 BATCH_ROUTED = "batch_routed"
@@ -99,7 +96,7 @@ EVENT_TYPES = (
     SNAPSHOT_PINNED, SNAPSHOT_RETIRED,
     COMPACTION_STARTED, COMPACTION_PUBLISHED, MANIFEST_ADVANCED,
     COARSE_PASS, FINE_PROBE,
-    WARMUP_BEGIN, WARMUP_END, EXECUTABLE_CACHE_HIT, EXECUTABLE_CACHE_MISS,
+    WARMUP_BEGIN, WARMUP_END, EXECUTABLE_CACHE_MISS,
     REPLICA_STATE, BATCH_ROUTED, BATCH_REDISPATCHED,
     REFRESH_BEGIN, REFRESH_END,
 )

@@ -271,9 +271,6 @@ class ServiceMetrics:
             buckets=COMPILE_BUCKETS_MS)
         self.warmups = r.counter(
             "warmups_total", "engine AOT warmup passes completed")
-        self.executable_cache_hits = r.counter(
-            "executable_cache_hits_total",
-            "warmup executables loaded from the persistent cache")
         self.executable_cache_misses = r.counter(
             "executable_cache_misses_total",
             "warmup executables compiled fresh (cache miss)")
@@ -410,11 +407,6 @@ class ServiceMetrics:
             elif ev.type == EV.WARMUP_END:
                 self.warmups.inc()
                 self.warmup_remaining.set(0)
-            elif ev.type == EV.EXECUTABLE_CACHE_HIT:
-                self.executable_cache_hits.inc()
-                rem = ev.payload.get("remaining")
-                if rem is not None:
-                    self.warmup_remaining.set(rem)
             elif ev.type == EV.EXECUTABLE_CACHE_MISS:
                 self.executable_cache_misses.inc()
                 rem = ev.payload.get("remaining")

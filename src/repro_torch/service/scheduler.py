@@ -38,7 +38,13 @@ module replaces it with an asynchronous scheduler:
 
 Each formed batch runs through ``engine.query_batch`` — one pinned MVCC
 snapshot version end-to-end, exactly like a direct call — and every
-response carries the split ``queue_ms`` / ``compute_ms`` latency.
+response carries the split ``queue_ms`` / ``compute_ms`` latency.  The
+worker opens each formed batch's span record
+(:mod:`repro_torch.exec.tracing`): ``wait`` (blocked for arrivals, or in
+the coalescing window), ``form`` (pop, stage, expire), ``batch`` (the
+engine's phases under it) and ``deliver`` (``finalize_batch``, with the
+done-callbacks futures run on this thread, and the metrics drain); their
+totals are ``stats()["trace"]``.
 Scheduler counters (formed-batch size histogram, bucket hits,
 expirations, sheds, queue depth) surface through ``scheduler.stats()``
 and, once attached, under ``engine.stats()["scheduler"]``.
@@ -61,6 +67,7 @@ import time
 import typing
 from concurrent.futures import Future, InvalidStateError
 
+from repro_torch.exec import tracing
 from repro_torch.exec.plan import DEFAULT_BATCH_BUCKETS
 from repro_torch.service import events as EV
 
@@ -200,6 +207,10 @@ class RequestScheduler:
                           "window_shrunk": 0, "max_queue_depth": 0,
                           "warm_held": 0}
         self._batch_hist: dict[int, int] = {}
+        # the worker's spans; the engine's tracer numbers the records and
+        # keeps them (a fleet front end has none: records stay local)
+        self._spans = tracing.SpanTotals()
+        self._tracer = getattr(engine, "tracer", None)
         # observability plane: adopt the engine's bus/metrics when it has
         # one (EngineConfig.metrics=True); every publish site guards on
         # None so the disabled path stays event-free
@@ -289,19 +300,28 @@ class RequestScheduler:
     # -- worker -------------------------------------------------------------
 
     def _loop(self) -> None:
+        rec = None
         while True:
-            items = self._next_batch()
+            if rec is None:            # a batch that formed empty keeps its record
+                traced = self.metrics is not None or tracing.profiling()
+                rec = (self._tracer.begin(traced) if self._tracer is not None
+                       else tracing.Record(0, traced))
+            items = self._next_batch(rec)
             if items is None:
                 return
-            if items:
-                self._wait_for_warm()
-                self._run_batch(items)
+            if not items:
+                rec.close(rec.top())                 # its form span
+                continue
+            self._wait_for_warm(rec)
+            self._run_batch(items, rec)
+            rec = None
 
-    def _wait_for_warm(self) -> None:
+    def _wait_for_warm(self, rec) -> None:
         """Hold batch dispatch while the engine's AOT warmup runs (its
         ``warm_event`` is cleared only for a warmup's duration — it starts
         set, so a never-warmed engine is never held).  Polled so a
-        ``close()`` during warmup still shuts the worker down promptly."""
+        ``close()`` during warmup still shuts the worker down promptly.
+        The hold is a ``wait`` span of ``rec``."""
         if not self.config.wait_for_warm:
             return
         ev = getattr(self.engine, "warm_event", None)
@@ -309,18 +329,26 @@ class RequestScheduler:
             return
         with self._cv:
             self._counters["warm_held"] += 1
-        while not ev.wait(timeout=0.05):
-            with self._cv:
-                if self._stop:
-                    return
+        span = rec.next(rec.top(), "wait")
+        try:
+            while not ev.wait(timeout=0.05):
+                with self._cv:
+                    if self._stop:
+                        return
+        finally:
+            rec.next(span, "form")
 
-    def _next_batch(self) -> list[_Item] | None:
+    def _next_batch(self, rec) -> list[_Item] | None:
         """Block for arrivals, coalesce within the wait window, then pop
-        up to ``max_batch`` items in priority order.  None = shut down."""
+        up to ``max_batch`` items in priority order.  None = shut down.
+        ``rec``'s ``wait`` span covers the blocking and the window; its
+        ``form`` span, left open, the rest."""
+        span = rec.open("wait")
         with self._cv:
             while not self._heap and not self._stop:
                 self._cv.wait()
             if not self._heap:
+                rec.close(span)
                 return None                      # stopped and drained
             if self.config.max_wait_ms > 0 and not self._stop:
                 t_end = self._clock() + self.config.max_wait_ms / 1e3
@@ -340,6 +368,7 @@ class RequestScheduler:
                             self._counters["window_shrunk"] += 1
                         break
                     self._cv.wait(timeout=left)
+            rec.next(span, "form")
             # partition as we pop so expired requests never consume live
             # batch slots: keep drawing from the queue until max_batch
             # UNEXPIRED items are staged (or it drains) — a backlog of
@@ -374,7 +403,9 @@ class RequestScheduler:
                 self._counters["expired"] += n_expired
         return live
 
-    def _run_batch(self, items: list[_Item]) -> None:
+    def _run_batch(self, items: list[_Item], rec) -> None:
+        """Run a formed batch (``rec``'s ``form`` span is the open one)
+        and deliver it; fold ``rec``'s spans."""
         t_start = self._clock()
         n = len(items)
         # counters mutate UNDER the lock: stats() snapshots the same
@@ -388,16 +419,19 @@ class RequestScheduler:
             self._counters[key] += 1
         self._publish(EV.BATCH_FORMED, n=n,
                       trace_ids=[it.trace_id for it in items])
+        span = rec.top()                         # form
         if self._dispatch is not None:
             # fleet handoff: the router places this formed batch on a
             # replica; that replica's worker resolves the futures (via
             # finalize_batch) and reports back through note_completed
             self._dispatch(items)
+            self._fold(rec, span)
             return
+        span = rec.next(span, "batch")
         try:
             responses = self.engine.query_batch(
                 [it.request for it in items],
-                trace_ids=[it.trace_id for it in items])
+                trace_ids=[it.trace_id for it in items], record=rec)
         except BaseException as e:
             with self._cv:
                 self._counters["failed"] += n
@@ -406,7 +440,9 @@ class RequestScheduler:
                     it.future.set_exception(e)
                 except InvalidStateError:
                     pass
+            self._fold(rec, span)
             return
+        span = rec.next(span, "deliver")
         finalize_batch(items, responses, t_start, metrics=self.metrics)
         with self._cv:
             self._counters["completed"] += n
@@ -416,6 +452,15 @@ class RequestScheduler:
             # at any load the worker keeps up with) and a scrape between
             # batches sees current counters
             self.metrics.drain()
+        self._fold(rec, span)
+
+    def _fold(self, rec, span: int) -> None:
+        """Close ``rec``'s last scheduler span and fold the scheduler's
+        spans (the record's top level) into ``stats()["trace"]``."""
+        rec.close(span)
+        top = [i for i, p in enumerate(rec.parents) if p < 0]
+        with self._cv:
+            self._spans.add(rec, top)
 
     # -- fleet reporting ----------------------------------------------------
 
@@ -465,12 +510,15 @@ class RequestScheduler:
     def stats(self) -> dict:
         """Scheduler counters: queue depth (current/max), formed-batch
         size histogram, bucket hit/miss counts, expirations, sheds,
-        deadline-shrunk coalescing windows."""
+        deadline-shrunk coalescing windows; ``trace``: the worker's spans
+        (``wait``, ``form``, ``batch``, ``deliver``) by name, each with its
+        count and total, self and max ms."""
         with self._cv:
             depth = len(self._heap)
             c = dict(self._counters)
             hist = dict(sorted(self._batch_hist.items()))
             closed = self._closed
+            spans = self._spans.as_dict()
         return {
             "queue_depth": depth,
             "max_queue": self.config.max_queue,
@@ -479,4 +527,5 @@ class RequestScheduler:
             "batch_size_hist": hist,
             "closed": closed,
             **c,
+            "trace": {"spans": spans},
         }

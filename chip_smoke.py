@@ -165,7 +165,9 @@ Phases:
    in both forms and beside the earlier gather-then-probe route; an empty
    kernel's launch floor beside ``quality_cdf``; the top-k kernel at every
    site's shape beside its bound, its plain version, the stable sort it
-   replaced and ``torch.topk``);
+   replaced and ``torch.topk``; the tiered coarse pass's priority kernel at
+   the benchmark's (256, 4,194,304) with block_c 32 and a proxy, and at the
+   main path's (64, 100k), beside its bytes bound and its plain version);
 5. each plan's batch and the two-stage scorer call profiled (five calls
    after an unrecorded window, divided by them; whether the window holds
    whole calls is logged): device time by operation, the top-k kernel's and any sort's,
@@ -219,6 +221,7 @@ from repro_torch.exec.executor import (RESCORE_MULT, Executor,    # noqa: E402
 from repro_torch.exec.plan import (DEFAULT_COLUMN_BUCKETS, Planner,  # noqa: E402
                                    PlannerConfig, QueryPlan)
 from repro_torch.kernels import _build, ops, ref                  # noqa: E402
+from repro_torch.kernels.coarse_priority import coarse_priority_cuda  # noqa: E402
 from repro_torch.kernels.gbdt_infer import gbdt_infer_cuda        # noqa: E402
 from repro_torch.kernels.lsh_probe import (PAD_CORPUS, PAD_QUERY,  # noqa: E402
                                            lsh_probe_cuda, lsh_probe_gathered_cuda)
@@ -278,12 +281,14 @@ TPU_KERNELS = {
     # no pallas_call: jax.lax.top_k (XLA's TopK) in merge_topk, and at
     # stages.py:155, :223, executor.py:153, moe.py:92, profiles.py:150
     "topk": "src/repro/exec/stages.py:205",
+    # no pallas_call: XLA in the tiered coarse pass, after its probe
+    "coarse_priority": "src/repro/exec/stages.py:113",
 }
 # which path of phase 3 each kernel belongs to (its launches are read there)
 PATH_OF = {"fused_score": "discovery", "minhash": "discovery", "lsh_probe": "discovery",
            "lsh_probe_gathered": "scale", "fused_score_q": "scale",
            "profile_distance": "model", "gbdt_infer": "model", "quality_cdf": "model",
-           "topk": "discovery"}
+           "topk": "discovery", "coarse_priority": "scale"}
 SIDE_BYTES = {"int8": 1, "fp16": 2}
 # kernels' times before their redesign, at the phase-4 shapes (PERF.md's
 # kernel table: NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
@@ -401,6 +406,9 @@ DRY_TEST_CELL_ARGUMENT_BYTES = 408_764_460
 TRACE_CALLS = 5
 # ``--plans``: synchronized batches a plan's steady wall is the mean of
 PLANS_REPS = 100
+# the tiered coarse pass at the benchmark's tiered4m batch: queries, columns
+# and survivor block (perfbench/configs/tiered4m.json)
+COARSE_Q, COARSE_C, COARSE_BLOCK = 256, 4_194_304, 32
 # the top-k kernel's device functions, as the profiler names them
 TOPK_KERNEL_NAMES = ("warp_topk", "radix_round", "collect", "bitonic_chunk", "bitonic_global")
 # phase 2's top-k shapes: rows, columns and k (k = N too, wherever k <= N),
@@ -514,6 +522,14 @@ def topk_bound(r: int, n: int, k: int):
     """The scores read once, the (R, k) int64 positions written once; a
     compare or two an element is far below the integer rate."""
     return bound_ms(r * n * 4 + r * k * 8)
+
+
+def coarse_priority_bound(q: int, c: int, proxy: bool = True):
+    """The hit mask (int32) and the proxy (float32) read once, the priority
+    (float32) written once: 12 bytes an element (8 without a proxy); the
+    columns' ids and tables and the queries' ids, tables and two counts
+    (int64) once."""
+    return bound_ms(q * c * (12 if proxy else 8) + c * 16 + q * 32)
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
@@ -2220,7 +2236,65 @@ def measure_kernels(run, dev, launches: dict) -> list:
     excl = stages.exclusion_mask(cids, tids, tq, qid)
     out.append(measure_topk(launches, flush, dev, torch.where(excl, float("-inf"), got), prio,
                             reference_candidates("lsh", zq, qk, z, ck, excl)))
+    # the tiered coarse pass's priority over this path's coarse hits and proxy
+    fill = (2.0 * zq) @ z.T - (z * z).sum(1)[None]
+    small = (ops.lsh_probe(qc, cc), fill, cids, tids, tq, qid)
+    out.append(measure_coarse_priority(launches, flush, dev, small))
     return out
+
+
+def coarse_priority_inputs(q: int, c: int, seed: int, dev):
+    """(hit, proxy, cids, tids, tq, qid) of a tiered batch drawn on the card
+    from ``seed``: 0/1 hits at 0.2%, a proxy of scale 100 (the fill's
+    magnitude), tables of 8 columns, resident queries with their own
+    tables."""
+    g = torch.Generator(dev).manual_seed(seed)
+    hit = (torch.rand((q, c), generator=g, device=dev) < 0.002).to(torch.int32)
+    proxy = torch.randn((q, c), generator=g, device=dev) * 100
+    cids = torch.arange(c, device=dev)
+    tids = cids // 8
+    qid = torch.randint(0, c, (q,), generator=g, device=dev)
+    return hit, proxy, cids, tids, tids[qid], qid
+
+
+def coarse_priority_case(args, block_c: int, flush, reps: int, plain_reps: int) -> dict:
+    """The kernel against its plain version (bit-equal: the priorities and
+    both counts) at ``args``, timed beside its bytes bound."""
+    got = ops.coarse_priority(*args, block_c)
+    want = ref.coarse_priority_ref(*args, block_c)
+    for name, a, b in zip(("prio", "n_hits", "n_survivors"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"coarse_priority {name} differs from its plain version at "
+                                 f"{tuple(args[0].shape)}")
+    del got, want
+    q, c = args[0].shape
+    b_ms, b_by = coarse_priority_bound(q, c, args[1] is not None)
+    before = _build.launch_counts["coarse_priority"]
+    ms = time_ms(lambda: coarse_priority_cuda(*args, block_c), reps, flush)
+    launched = _build.launch_counts["coarse_priority"] - before
+    plain_ms = time_ms(lambda: ref.coarse_priority_ref(*args, block_c), plain_reps, flush)
+    log(f"kernel coarse_priority {(q, c)} block_c={block_c}: {ms:.4f} ms (bound {b_ms:.4f} ms "
+        f"by {b_by}, {b_ms / ms:.1%} of it; {launched} launches for {reps + 1} calls), plain "
+        f"{plain_ms:.3f} ms, equal")
+    return {"shape": [q, c], "block_c": block_c, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": plain_ms, "launches_timed": launched, "calls_timed": reps + 1}
+
+
+def measure_coarse_priority(launches: dict, flush, dev, small) -> dict:
+    """Phase 4's coarse priority row: at the benchmark's tiered4m batch
+    (COARSE_Q x COARSE_C, block_c 32, a proxy; inputs drawn on the card),
+    and at the main path's (64, 100k) from ``small``, its coarse hits and
+    proxy. The row is the first; the second stands in ``small``."""
+    big = coarse_priority_case(coarse_priority_inputs(COARSE_Q, COARSE_C, DRY_SEED, dev),
+                               COARSE_BLOCK, flush, 20, 3)
+    torch.cuda.empty_cache()
+    main_path_case = coarse_priority_case(small, COARSE_BLOCK, flush, 50, 5)
+    return {"name": "coarse_priority", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/coarse_priority.cu",
+            "replaces": TPU_KERNELS["coarse_priority"], "launches": launches["coarse_priority"],
+            "max_abs_err": 0.0, "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": big["bound_by"], "library_ms": None,
+            "shape": big["shape"], "small": main_path_case}
 
 
 def topk_sites(s_all, prio_hybrid, prio_lsh, dev) -> list:
@@ -3527,12 +3601,14 @@ def main() -> int:
     run, discovery = counted("discovery", ("fused_score", "minhash", "lsh_probe", "topk"),
                              lambda: main_path(dev))
     _, scale = counted("scale", ("lsh_probe", "lsh_probe_gathered", "fused_score_q",
-                                 "fused_score", "topk"), lambda: scale_path(run, dev))
+                                 "fused_score", "topk", "coarse_priority"),
+                       lambda: scale_path(run, dev))
     _, model = counted("model", ("profile_distance", "gbdt_infer", "quality_cdf"),
                        lambda: model_path(run, dev))
     served, serve_counts = counted(
         "serve", ("fused_score", "fused_score_q", "minhash", "lsh_probe",
-                  "lsh_probe_gathered", "topk"), lambda: serve_path(run, dev))
+                  "lsh_probe_gathered", "topk", "coarse_priority"),
+        lambda: serve_path(run, dev))
     fleet_run, fleet_counts = counted(
         "fleet", ("fused_score", "lsh_probe", "minhash", "topk"),
         lambda: fleet_path(run, served, dev))

@@ -31,12 +31,10 @@ import torch
 
 from repro_torch.exec import tracing
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import LSH_PRIORITY_BOOST as _LSH_PRIORITY_BOOST
+from repro_torch.kernels.ref import exclusion_mask
 
 CANDIDATE_KINDS = ("all", "lsh", "hybrid", "tiered")
-
-# LSH hits outrank every profile-proximity score: the proxy is squashed
-# into (-1, 1), so any offset > 2 keeps the two bands disjoint.
-_LSH_PRIORITY_BOOST = 4.0
 
 # The hybrid proxy is a float32 matrix product. TF32 would keep ~3 decimal
 # digits and could change which columns fill the candidate budget, so the
@@ -56,16 +54,6 @@ def topk_stable(x: torch.Tensor, k: int):
 def live_count(cids: torch.Tensor) -> torch.Tensor:
     """Number of live (non-padding) columns on the corpus axis."""
     return (cids >= 0).sum()
-
-
-def exclusion_mask(cids, tids, tq, qid):
-    """(Q, C) bool — True where a column must NOT be returned for a query:
-    padding columns (cid < 0), the query itself (qid = -1 matches nothing)
-    and same-table columns (tq = -1 disables the table mask for that row)."""
-    pad = (cids < 0)[None, :]
-    self_hit = cids[None, :] == qid[:, None]
-    same_table = (tq[:, None] >= 0) & (tids[None, :] == tq[:, None])
-    return pad | self_hit | same_table
 
 
 def candidate_priorities(kind: str, zq, qkeys, z, ckeys, cids, tids, tq, qid):
@@ -105,29 +93,17 @@ def tiered_survivors(qcoarse, coarse, cids, tids, tq, qid, *,
     their validity, and per query the direct coarse hits and the
     digest-eligible survivor columns (proxy fill does not count).
     ``stage(name)`` opens each step's span (``probe``, ``priority``,
-    ``select``, ``count``; :meth:`repro_torch.exec.tracing.Record.stage`).
+    ``select``; :meth:`repro_torch.exec.tracing.Record.stage`). The priority
+    and both counts are one pass (``ops.coarse_priority``: the kernel
+    ``kernels/csrc/coarse_priority.cu`` on the card).
     """
-    c = coarse.shape[0]
     with stage("probe"):
         hit = ops.lsh_probe(qcoarse, coarse)                          # (Q, C)
     with stage("priority"):
-        nb = -(-c // block_c)
-        hp = torch.nn.functional.pad(hit, (0, nb * block_c - c))
-        block_hit = (hp.reshape(hit.shape[0], nb, block_c) > 0).any(-1)
-        block_hit = block_hit.repeat_interleave(block_c, dim=1)[:, :c]  # (Q, C)
-        excl = exclusion_mask(cids, tids, tq, qid)
-        if proxy is None:
-            prio = torch.where(block_hit, 1.0, float("-inf")) + hit.to(torch.float32)
-        else:
-            prio = (torch.where(block_hit, _LSH_PRIORITY_BOOST, 0.0)
-                    + hit.to(torch.float32)
-                    + proxy / (1.0 + torch.abs(proxy)))
-        prio = torch.where(excl, float("-inf"), prio)
+        prio, n_hits, n_survivors = ops.coarse_priority(hit, proxy, cids, tids, tq, qid,
+                                                        block_c)
     with stage("select"):
         pos, valid = gather_candidates(prio, survivor_budget)
-    with stage("count"):
-        n_hits = ((hit > 0) & ~excl).sum(1)
-        n_survivors = (block_hit & ~excl).sum(1)
     return pos, valid, n_hits, n_survivors
 
 

@@ -32,7 +32,8 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("fused_score", "minhash", "lsh_probe", "lsh_probe_gathered",
-           "fused_score_q", "profile_distance", "gbdt_infer", "quality_cdf", "topk")
+           "fused_score_q", "profile_distance", "gbdt_infer", "quality_cdf", "topk",
+           "coarse_priority")
 # built beside the kernels for the timing harness only: an empty kernel's
 # launch floor, and the integer rate of minhash's inner loop
 HARNESS = ("launch_floor", "int_rate")
@@ -76,6 +77,9 @@ _SIGNATURES = {
     },
     "topk": {
         "freyja_topk": ([_P] * 6 + [_LL, _LL, _I, _I, _P, _I, _LL, _P], _I),
+    },
+    "coarse_priority": {
+        "freyja_coarse_priority": ([_P] * 8 + [_I, _I, _I, _I, _P], _I),
     },
     "launch_floor": {
         "freyja_launch_floor": ([_P], _I),

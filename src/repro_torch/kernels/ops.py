@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.device import from_bits, to_bits
 from repro_torch.kernels import ref
+from repro_torch.kernels.coarse_priority import check_args as _coarse_priority_args
+from repro_torch.kernels.coarse_priority import coarse_priority_cuda
 from repro_torch.kernels.gbdt_infer import gbdt_infer_cuda
 from repro_torch.kernels.lsh_probe import lsh_probe_cuda, lsh_probe_gathered_cuda
 from repro_torch.kernels.minhash import minhash_cuda
@@ -22,7 +24,7 @@ from repro_torch.kernels.quality_cdf import quality_cdf_cuda
 from repro_torch.kernels.topk import topk_cuda, topk_meta
 
 __all__ = ["fused_score", "fused_score_q", "minhash", "lsh_probe", "lsh_probe_gathered",
-           "profile_distance", "gbdt_infer", "quality_cdf", "topk"]
+           "profile_distance", "gbdt_infer", "quality_cdf", "topk", "coarse_priority"]
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -147,3 +149,15 @@ def topk(x, k: int):
     if not _on_cuda(x, "topk"):
         return ref.topk_ref(x, k)
     return topk_cuda(x.detach().contiguous(), k)
+
+
+def coarse_priority(hit, proxy, cids, tids, tq, qid, block_c: int):
+    """The tiered coarse pass's survivor priority and counts (see
+    ``ref.coarse_priority_ref``): ``hit`` (Q, C) int32 from :func:`lsh_probe`,
+    ``proxy`` (Q, C) float32 or None, ``cids``/``tids`` (C,) and ``tq``/``qid``
+    (Q,) int64, all contiguous on one device -> (prio (Q, C) float32,
+    n_hits (Q,) int64, n_survivors (Q,) int64)."""
+    if not _on_cuda(hit, "coarse_priority"):
+        _coarse_priority_args(hit, proxy, cids, tids, tq, qid, block_c)
+        return ref.coarse_priority_ref(hit, proxy, cids, tids, tq, qid, block_c)
+    return coarse_priority_cuda(hit, proxy, cids, tids, tq, qid, block_c)

@@ -18,6 +18,10 @@ import torch
 from repro_torch.core import features as FT
 from repro_torch.device import U32_MASK
 
+# LSH hits outrank every profile-proximity score: the proxy is squashed
+# into (-1, 1), so any offset > 2 keeps the two bands disjoint.
+LSH_PRIORITY_BOOST = 4.0
+
 # elements of the (C, rows, P) hash intermediate one minhash step may hold
 _MINHASH_ELEMS = 1 << 24
 _SQRT2 = float(np.float32(math.sqrt(2.0)))
@@ -109,6 +113,43 @@ def lsh_probe_gathered_ref(qkeys, ckeys):
     (Q, C', B) -> (Q, C') int32: 1 iff row c' of query q shares a key with
     the query in any band."""
     return (qkeys[:, None, :] == ckeys).any(-1).to(torch.int32)
+
+
+def exclusion_mask(cids, tids, tq, qid):
+    """(Q, C) bool — True where a column must NOT be returned for a query:
+    padding columns (cid < 0), the query itself (qid = -1 matches nothing)
+    and same-table columns (tq = -1 disables the table mask for that row)."""
+    pad = (cids < 0)[None, :]
+    self_hit = cids[None, :] == qid[:, None]
+    same_table = (tq[:, None] >= 0) & (tids[None, :] == tq[:, None])
+    return pad | self_hit | same_table
+
+
+def coarse_priority_ref(hit, proxy, cids, tids, tq, qid, block_c: int):
+    """The tiered coarse pass's survivor priority and counts. ``hit`` (Q, C)
+    int32 coarse hits; column hits expand to blocks of ``block_c`` contiguous
+    columns (a ragged last block holds the columns that exist). Priority:
+    block hits first, the direct hit added, then ``proxy`` (Q, C) squashed
+    into (-1, 1) below every block hit; without a proxy, -inf off the hit
+    blocks; -inf wherever :func:`exclusion_mask` holds. Returns
+    ``(prio (Q, C) float32, n_hits (Q,), n_survivors (Q,))``: per query the
+    direct hits and the block-hit columns not excluded."""
+    c = hit.shape[1]
+    nb = -(-c // block_c)
+    hp = torch.nn.functional.pad(hit, (0, nb * block_c - c))
+    block_hit = (hp.reshape(hit.shape[0], nb, block_c) > 0).any(-1)
+    block_hit = block_hit.repeat_interleave(block_c, dim=1)[:, :c]  # (Q, C)
+    excl = exclusion_mask(cids, tids, tq, qid)
+    if proxy is None:
+        prio = torch.where(block_hit, 1.0, float("-inf")) + hit.to(torch.float32)
+    else:
+        prio = (torch.where(block_hit, LSH_PRIORITY_BOOST, 0.0)
+                + hit.to(torch.float32)
+                + proxy / (1.0 + torch.abs(proxy)))
+    prio = torch.where(excl, float("-inf"), prio)
+    n_hits = ((hit > 0) & ~excl).sum(1)
+    n_survivors = (block_hit & ~excl).sum(1)
+    return prio, n_hits, n_survivors
 
 
 def minhash_jaccard_ref(sig_a, sig_b):

@@ -4,7 +4,7 @@
 and ``<<<>>>`` act on the calling thread's current device, not on the
 stream's, so each wrapper makes its tensors' device current around its
 ctypes call (``kernels._build.on_device``). On the host, with the library
-and the guard stubbed, each of the nine wrappers must reach its library
+and the guard stubbed, each of the ten wrappers must reach its library
 only inside the guard and with its tensors' device; on a host with two cards
 (``gpu`` marker), each kernel called with tensors on ``cuda:1`` from a thread
 whose current device is 0 must equal its plain version.
@@ -19,6 +19,7 @@ import torch
 from repro_torch.core import features as FT
 from repro_torch.device import hashes_to_torch, to_bits
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.coarse_priority import coarse_priority_cuda
 from repro_torch.kernels.gbdt_infer import gbdt_infer_cuda
 from repro_torch.kernels.lsh_probe import lsh_probe_cuda, lsh_probe_gathered_cuda
 from repro_torch.kernels.minhash import make_permutations, minhash_cuda
@@ -49,6 +50,7 @@ def _cases(device):
     cdf = (t(r.uniform(-0.1, 0.6, (4097,)).astype(np.float32)),
            t(r.uniform(-0.1, 1.1, (4097,)).astype(np.float32)), 0.25, 0.19, 0.44, 0.28, 0.0, 1.0)
     scores = t(r.normal(size=(5, 10_000)).astype(np.float32))
+    coarse = _coarse_inputs(r, 5, 1000, t)
     return {
         "fused_score": (lambda: ops.fused_score(*score, g),
                         lambda: ref.fused_score_ref(*score, *g)),
@@ -63,7 +65,27 @@ def _cases(device):
         "gbdt_infer": (lambda: ops.gbdt_infer(x, g), lambda: ref.gbdt_infer_ref(x, *g)),
         "quality_cdf": (lambda: ops.quality_cdf(*cdf), lambda: ref.quality_cdf_ref(*cdf)),
         "topk": (lambda: ops.topk(scores, 10), lambda: ref.topk_ref(scores, 10)),
+        "coarse_priority": (lambda: _flat(ops.coarse_priority(*coarse, 32)),
+                            lambda: _flat(ref.coarse_priority_ref(*coarse, 32))),
     }
+
+
+def _coarse_inputs(r, q: int, c: int, t):
+    """The coarse priority's (hit, proxy, cids, tids, tq, qid) through ``t``:
+    sparse hits, a proxy, a padded last column, tables of 8 columns."""
+    tids = np.arange(c, dtype=np.int64) // 8
+    qid = r.choice(c, q, replace=False).astype(np.int64)
+    cids = np.arange(c, dtype=np.int64)
+    cids[-1] = -1
+    return (t((r.random((q, c)) < 0.01).astype(np.int32)),
+            t(r.normal(0, 4, (q, c)).astype(np.float32)), t(cids), t(tids), t(tids[qid]),
+            t(qid))
+
+
+def _flat(out) -> torch.Tensor:
+    """The coarse priority's (prio, n_hits, n_survivors) as one float64 row,
+    compared as one kernel output."""
+    return torch.cat([x.to(torch.float64).reshape(-1) for x in out])
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +122,7 @@ def _wrapper_calls():
         "quality_cdf": lambda: quality_cdf_cuda(j, j.clone(), 0.25, 0.19, 0.44, 0.28,
                                                 0.0, 1.0),
         "topk": lambda: topk_cuda(x, 5),
+        "coarse_priority": lambda: coarse_priority_cuda(*_coarse_inputs(r, 3, 40, t), 32),
     }
 
 

@@ -102,7 +102,7 @@ def test_children_lie_inside_their_parents(snapshot, model, mode, dtype):
         if mode == "tiered":
             coarse = names.index("coarse")
             assert [s["name"] for s in spans if s["parent"] == coarse] == \
-                ["fill", "probe", "priority", "select", "count"]
+                ["fill", "probe", "priority", "select"]
             assert [s["name"] for s in spans if s["parent"] == names.index("rerank")] == \
                 ["roundtrip"]
         finalize = names.index("finalize")

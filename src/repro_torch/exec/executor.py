@@ -568,7 +568,7 @@ class Executor:
             zq, wq, tq, qid, *keys = [h.to(dev) for h in host]
             keys = [to_bits(k) for k in keys]
             tr.count("h2d_bytes", sum(h.nbytes for h in host))
-        tier = None
+        tier = hits = None
         if plan.sharded:
             with tr.stage("sharded"):
                 sc, ids, n = self._run_sharded(plan, zq, wq, tq, qid, qkeys)
@@ -578,7 +578,7 @@ class Executor:
             sc, ids, n, *tier = self._local_tiered(
                 zq, wq, keys[0], keys[1], tq, qid, **self._local_spec(plan), tr=tr)
         else:
-            sc, ids, n = self._local_pruned(
+            sc, ids, n, hits = self._local_pruned(
                 plan.candidates, zq, wq, keys[0], tq, qid, **self._local_spec(plan), tr=tr)
         if self._fp32_rows is not None:
             with tr.stage("rerank") as st:
@@ -587,7 +587,11 @@ class Executor:
             out = [sc.cpu(), ids.to(torch.int32).cpu(), n.to(torch.int32).cpu()]
             if tier is not None:          # (n_hits, n_survivors), read after the scan
                 out += [t.to(torch.int32).cpu() for t in tier]
+            if hits is not None:
+                out.append(hits.cpu())
             tr.count("d2h_bytes", sum(t.nbytes for t in out))
+        if hits is not None:
+            tr.count("prune_hits", out.pop())
         out = [t.numpy() for t in out]
         sc, ids = pad_topk(out[0], out[1], plan.k)
         return sc, ids, out[2], (tuple(out[3:]) if tier is not None else None)
@@ -632,17 +636,25 @@ class Executor:
 
     def _local_pruned(self, kind, zq, wq, qkeys, tq, qid, k: int, budget: int,
                       tr=tracing.NULL):
+        """The ``lsh``/``hybrid`` candidate stage over the whole lake, then the
+        scorer over each query's ``budget`` candidates. Returns the top k,
+        the scored counts and the budget slots an LSH hit filled (a 0-d
+        tensor, read back with the results)."""
         with tr.stage("prune"):
             zf = dequantize(self._z, self._zscale)
             prio = stages.candidate_priorities(kind, zq, qkeys, zf, self._ckeys,
-                                               self._cids, self._tids, tq, qid)
-            pos, valid = stages.gather_candidates(prio, budget)
+                                               self._cids, self._tids, tq, qid,
+                                               stage=tr.stage)
+            with tr.stage("select"):
+                pval, pos = stages.topk_stable(prio, budget)
+                valid = torch.isfinite(pval)
+                hits = stages.budget_hits(kind, pval)
         with tr.stage("score"):
             s = torch.where(valid, self._score(zq, wq, pos), float("-inf"))
         with tr.stage("merge"):
             sc, ids = stages.merge_topk(s, self._cids[pos], k)
             n = valid.sum(1)
-        return sc, ids, n
+        return sc, ids, n, hits
 
     def _local_tiered(self, zq, wq, qkeys, qcoarse, tq, qid, k: int, budget: int,
                       survivor_budget: int, tr=tracing.NULL):

@@ -56,25 +56,37 @@ def live_count(cids: torch.Tensor) -> torch.Tensor:
     return (cids >= 0).sum()
 
 
-def candidate_priorities(kind: str, zq, qkeys, z, ckeys, cids, tids, tq, qid):
+def candidate_priorities(kind: str, zq, qkeys, z, ckeys, cids, tids, tq, qid, *,
+                         stage=tracing.NULL.stage):
     """(Q, C) float32 priorities; -inf means "never a candidate".
 
     ``lsh`` — bucket hits only; ``hybrid`` — hits first, then nearest
     columns in z-scored profile space via one matrix product (squared L2 up
-    to a per-query constant).
+    to a per-query constant). ``stage(name)`` opens each step's span:
+    ``probe`` (the band probe) and ``priority`` (the proxy, its squash, the
+    hits' boost and the exclusion).
     """
-    excl = exclusion_mask(cids, tids, tq, qid)
-    hit = ops.lsh_probe(qkeys, ckeys)
-    if kind == "lsh":
-        prio = torch.where(hit > 0, 0.0, float("-inf"))
-    elif kind == "hybrid":
-        # -||zq - z||² up to a per-query constant: 2·zq@zᵀ - ||z||²
-        proxy = (2.0 * zq) @ z.T - (z * z).sum(1)[None]
-        proxy = proxy / (1.0 + torch.abs(proxy))            # squash to (-1, 1)
-        prio = hit.to(torch.float32) * _LSH_PRIORITY_BOOST + proxy
-    else:
+    if kind not in ("lsh", "hybrid"):
         raise ValueError(f"unknown candidate kind {kind!r}; want lsh or hybrid")
-    return torch.where(excl, float("-inf"), prio)
+    with stage("probe"):
+        hit = ops.lsh_probe(qkeys, ckeys)
+    with stage("priority"):
+        if kind == "lsh":
+            prio = torch.where(hit > 0, 0.0, float("-inf"))
+        else:
+            # -||zq - z||² up to a per-query constant: 2·zq@zᵀ - ||z||²
+            proxy = (2.0 * zq) @ z.T - (z * z).sum(1)[None]
+            proxy = proxy / (1.0 + torch.abs(proxy))            # squash to (-1, 1)
+            prio = hit.to(torch.float32) * _LSH_PRIORITY_BOOST + proxy
+        return torch.where(exclusion_mask(cids, tids, tq, qid), float("-inf"), prio)
+
+
+def budget_hits(kind: str, pval):
+    """The budget slots an LSH hit filled, summed over the batch (a 0-d
+    tensor), from the selected priorities ``pval`` (Q, M): a ``hybrid``
+    hit's priority lies above the squashed proxy's ceiling of 1, and every
+    finite ``lsh`` slot is a hit."""
+    return (pval > 1.0 if kind == "hybrid" else torch.isfinite(pval)).sum()
 
 
 def tiered_survivors(qcoarse, coarse, cids, tids, tq, qid, *,

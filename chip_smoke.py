@@ -221,6 +221,7 @@ from repro_torch.exec.executor import (RESCORE_MULT, Executor,    # noqa: E402
 from repro_torch.exec.plan import (DEFAULT_COLUMN_BUCKETS, Planner,  # noqa: E402
                                    PlannerConfig, QueryPlan)
 from repro_torch.kernels import _build, ops, ref                  # noqa: E402
+from repro_torch.kernels.candidate_priority import candidate_priority_cuda  # noqa: E402
 from repro_torch.kernels.coarse_priority import coarse_priority_cuda  # noqa: E402
 from repro_torch.kernels.gbdt_infer import gbdt_infer_cuda        # noqa: E402
 from repro_torch.kernels.lsh_probe import (PAD_CORPUS, PAD_QUERY,  # noqa: E402
@@ -283,12 +284,14 @@ TPU_KERNELS = {
     "topk": "src/repro/exec/stages.py:205",
     # no pallas_call: XLA in the tiered coarse pass, after its probe
     "coarse_priority": "src/repro/exec/stages.py:113",
+    # no pallas_call: XLA in the lsh and hybrid candidate stage, after its probe
+    "candidate_priority": "src/repro/exec/stages.py:61",
 }
 # which path of phase 3 each kernel belongs to (its launches are read there)
 PATH_OF = {"fused_score": "discovery", "minhash": "discovery", "lsh_probe": "discovery",
            "lsh_probe_gathered": "scale", "fused_score_q": "scale",
            "profile_distance": "model", "gbdt_infer": "model", "quality_cdf": "model",
-           "topk": "discovery", "coarse_priority": "scale"}
+           "topk": "discovery", "coarse_priority": "scale", "candidate_priority": "discovery"}
 SIDE_BYTES = {"int8": 1, "fp16": 2}
 # kernels' times before their redesign, at the phase-4 shapes (PERF.md's
 # kernel table: NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
@@ -409,6 +412,9 @@ PLANS_REPS = 100
 # the tiered coarse pass at the benchmark's tiered4m batch: queries, columns
 # and survivor block (perfbench/configs/tiered4m.json)
 COARSE_Q, COARSE_C, COARSE_BLOCK = 256, 4_194_304, 32
+# the lsh and hybrid candidate stage at the benchmark's hybrid4m batch:
+# queries and columns (perfbench/configs/hybrid4m.json)
+CAND_Q, CAND_C = 256, 4_194_304
 # the top-k kernel's device functions, as the profiler names them
 TOPK_KERNEL_NAMES = ("warp_topk", "radix_round", "collect", "bitonic_chunk", "bitonic_global")
 # phase 2's top-k shapes: rows, columns and k (k = N too, wherever k <= N),
@@ -530,6 +536,14 @@ def coarse_priority_bound(q: int, c: int, proxy: bool = True):
     columns' ids and tables and the queries' ids, tables and two counts
     (int64) once."""
     return bound_ms(q * c * (12 if proxy else 8) + c * 16 + q * 32)
+
+
+def candidate_priority_bound(q: int, c: int, proxy: bool = True):
+    """The hit mask (int32) and g (float32) read once, the priority (float32)
+    written once: 12 bytes an element (8 for lsh, without g); the columns'
+    norms, ids and tables (20 bytes a column, 16 for lsh) and the queries'
+    ids and tables (int64) once."""
+    return bound_ms(q * c * (12 if proxy else 8) + c * (20 if proxy else 16) + q * 16)
 
 
 def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
@@ -2240,6 +2254,11 @@ def measure_kernels(run, dev, launches: dict) -> list:
     fill = (2.0 * zq) @ z.T - (z * z).sum(1)[None]
     small = (ops.lsh_probe(qc, cc), fill, cids, tids, tq, qid)
     out.append(measure_coarse_priority(launches, flush, dev, small))
+    del small, fill
+    # the lsh and hybrid candidate priority over this path's band hits and proxy
+    small = (ops.lsh_probe(qk, ck), (2.0 * zq) @ z.T, stages.column_norms(z), cids, tids, tq,
+             qid)
+    out.append(measure_candidate_priority(launches, flush, dev, small))
     return out
 
 
@@ -2295,6 +2314,74 @@ def measure_coarse_priority(launches: dict, flush, dev, small) -> dict:
             "max_abs_err": 0.0, "ms": big["ms"], "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": big["bound_by"], "library_ms": None,
             "shape": big["shape"], "small": main_path_case}
+
+
+def candidate_priority_inputs(q: int, c: int, seed: int, dev):
+    """(hit, g, znorm, cids, tids, tq, qid) of a hybrid batch drawn on the
+    card from ``seed``: 0/1 hits at 0.2%, g of scale 10 and norms in [0, 40)
+    (z-scored profiles of 21 features), tables of 8 columns, resident queries
+    with their own tables."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    hit = (torch.rand((q, c), generator=gen, device=dev) < 0.002).to(torch.int32)
+    g = torch.randn((q, c), generator=gen, device=dev) * 10
+    zn = torch.rand((c,), generator=gen, device=dev) * 40
+    cids = torch.arange(c, device=dev)
+    tids = cids // 8
+    qid = torch.randint(0, c, (q,), generator=gen, device=dev)
+    return hit, g, zn, cids, tids, tids[qid], qid
+
+
+def candidate_priority_case(args, flush, reps: int, plain_reps: int) -> dict:
+    """The kernel against its plain version (bit-equal) at ``args`` (g and
+    znorm None: the lsh kind), timed beside its bytes bound. The kernel
+    writes over its g, so the check and the timed calls get a copy; the
+    timed calls rewrite it in place, as the stage does (the priorities stay
+    finite off the excluded columns, so each call runs the same arithmetic)."""
+    hit, g, zn, *rest = args
+    kind = "lsh" if g is None else "hybrid"
+    want = ref.candidate_priority_ref(*args)
+    got = ops.candidate_priority(hit, None if g is None else g.clone(), zn, *rest)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"candidate_priority ({kind}) differs from its plain version at "
+                             f"{tuple(hit.shape)}")
+    work = None if g is None else got.copy_(g)
+    del got, want
+    q, c = hit.shape
+    b_ms, b_by = candidate_priority_bound(q, c, g is not None)
+    before = _build.launch_counts["candidate_priority"]
+    ms = time_ms(lambda: candidate_priority_cuda(hit, work, zn, *rest), reps, flush)
+    launched = _build.launch_counts["candidate_priority"] - before
+    del work
+    plain_ms = time_ms(lambda: ref.candidate_priority_ref(*args), plain_reps, flush)
+    log(f"kernel candidate_priority {kind} {(q, c)}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
+        f"{b_by}, {b_ms / ms:.1%} of it; {launched} launches for {reps + 1} calls), plain "
+        f"{plain_ms:.3f} ms, equal")
+    return {"kind": kind, "shape": [q, c], "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": plain_ms, "launches_timed": launched, "calls_timed": reps + 1}
+
+
+def measure_candidate_priority(launches: dict, flush, dev, small) -> dict:
+    """Phase 4's candidate priority row: hybrid at the benchmark's hybrid4m
+    batch (CAND_Q x CAND_C; inputs drawn on the card), lsh at the same
+    shape, and hybrid at the main path's (64, 100k) from ``small``, its band
+    hits and proxy. The row is the first; the others stand in ``lsh`` and
+    ``small``."""
+    big_args = candidate_priority_inputs(CAND_Q, CAND_C, DRY_SEED, dev)
+    big = candidate_priority_case(big_args, flush, 20, 3)
+    hit, _, _, *rest = big_args
+    del big_args
+    torch.cuda.empty_cache()
+    lsh = candidate_priority_case((hit, None, None, *rest), flush, 20, 3)
+    del hit, rest
+    torch.cuda.empty_cache()
+    main_path_case = candidate_priority_case(small, flush, 50, 5)
+    return {"name": "candidate_priority", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/candidate_priority.cu",
+            "replaces": TPU_KERNELS["candidate_priority"],
+            "launches": launches["candidate_priority"], "max_abs_err": 0.0, "ms": big["ms"],
+            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"], "library_ms": None, "shape": big["shape"],
+            "lsh": lsh, "small": main_path_case}
 
 
 def topk_sites(s_all, prio_hybrid, prio_lsh, dev) -> list:
@@ -3598,8 +3685,8 @@ def main() -> int:
         f"({time.perf_counter() - t0:.2f} s)")
 
     # phase 3: each path counted on its own
-    run, discovery = counted("discovery", ("fused_score", "minhash", "lsh_probe", "topk"),
-                             lambda: main_path(dev))
+    run, discovery = counted("discovery", ("fused_score", "minhash", "lsh_probe", "topk",
+                                           "candidate_priority"), lambda: main_path(dev))
     _, scale = counted("scale", ("lsh_probe", "lsh_probe_gathered", "fused_score_q",
                                  "fused_score", "topk", "coarse_priority"),
                        lambda: scale_path(run, dev))
@@ -3618,10 +3705,11 @@ def main() -> int:
     if not all(sharded_geometry.values()):
         raise AssertionError(f"sharded path: fused_score launches by geometry {sharded_geometry}")
     counts = {"discovery": discovery, "scale": scale, "model": model}
-    log(f"topk launches by path: " + ", ".join(
-        f"{path} {c['topk']}" for path, c in (*counts.items(), ("serve", serve_counts),
-                                             ("fleet", fleet_counts),
-                                             ("sharded", sharded_counts))))
+    for kernel in ("topk", "candidate_priority"):
+        log(f"{kernel} launches by path: " + ", ".join(
+            f"{path} {c[kernel]}" for path, c in (*counts.items(), ("serve", serve_counts),
+                                                 ("fleet", fleet_counts),
+                                                 ("sharded", sharded_counts))))
     launches = {k: counts[PATH_OF[k]][k] for k in _build.KERNELS}
     t0 = time.perf_counter()
     check_main_path(run, dev)

@@ -249,6 +249,9 @@ class Executor:
         self._tids, self._cids = rows["tids"], rows["cids"]
         self._ckeys, self._coarse = rows["ckeys"], rows["coarse"]
         self._rows_bundle = bundle
+        # the columns' squared norms for the hybrid proxy: computed by the
+        # placement's first hybrid batch (the warm-up's), kept until close
+        self._znorm = None
 
     def _rows(self) -> dict:
         return dict(z=self._z, w=self._w, tids=self._tids, cids=self._cids,
@@ -284,7 +287,7 @@ class Executor:
         self._placed.clear()
         self._pipelines.clear()
         self._z = self._w = self._cids = self._tids = self._ckeys = None
-        self._zscale = self._coarse = None
+        self._zscale = self._coarse = self._znorm = None
         self._rows_bundle.release()
         self._gbdt_bundle.release()
 
@@ -338,6 +341,7 @@ class Executor:
         ex.bytes_uploaded = 0
         if d == 0 and n_pad2 == self.n_columns:
             ex._adopt_rows(self._rows(), self._rows_bundle.retain())
+            ex._znorm = self._znorm
         else:
             delta = dict(
                 z=ex._upload(z_rows),
@@ -642,9 +646,11 @@ class Executor:
         tensor, read back with the results)."""
         with tr.stage("prune"):
             zf = dequantize(self._z, self._zscale)
+            if kind == "hybrid" and self._znorm is None:
+                self._znorm = stages.column_norms(zf)
             prio = stages.candidate_priorities(kind, zq, qkeys, zf, self._ckeys,
                                                self._cids, self._tids, tq, qid,
-                                               stage=tr.stage)
+                                               znorm=self._znorm, stage=tr.stage)
             with tr.stage("select"):
                 pval, pos = stages.topk_stable(prio, budget)
                 valid = torch.isfinite(pval)

@@ -56,29 +56,36 @@ def live_count(cids: torch.Tensor) -> torch.Tensor:
     return (cids >= 0).sum()
 
 
+def column_norms(z):
+    """(C,) float32 squared norms ``(z * z).sum(1)`` of float32 profiles
+    ``z`` (C, F): the proxy's per-column term, constant for a lake version."""
+    return (z * z).sum(1)
+
+
 def candidate_priorities(kind: str, zq, qkeys, z, ckeys, cids, tids, tq, qid, *,
-                         stage=tracing.NULL.stage):
+                         znorm=None, stage=tracing.NULL.stage):
     """(Q, C) float32 priorities; -inf means "never a candidate".
 
     ``lsh`` — bucket hits only; ``hybrid`` — hits first, then nearest
     columns in z-scored profile space via one matrix product (squared L2 up
-    to a per-query constant). ``stage(name)`` opens each step's span:
-    ``probe`` (the band probe) and ``priority`` (the proxy, its squash, the
-    hits' boost and the exclusion).
+    to a per-query constant). ``znorm``, the :func:`column_norms` of ``z``
+    kept with the placement, spares ``hybrid`` their computation.
+    ``stage(name)`` opens each step's span: ``probe`` (the band probe) and
+    ``priority`` (the proxy's matrix product, then its squash, the hits'
+    boost and the exclusion in one pass: ``ops.candidate_priority``, the
+    kernel ``kernels/csrc/candidate_priority.cu`` on the card).
     """
     if kind not in ("lsh", "hybrid"):
         raise ValueError(f"unknown candidate kind {kind!r}; want lsh or hybrid")
     with stage("probe"):
         hit = ops.lsh_probe(qkeys, ckeys)
     with stage("priority"):
-        if kind == "lsh":
-            prio = torch.where(hit > 0, 0.0, float("-inf"))
-        else:
+        g = zn = None
+        if kind == "hybrid":
             # -||zq - z||² up to a per-query constant: 2·zq@zᵀ - ||z||²
-            proxy = (2.0 * zq) @ z.T - (z * z).sum(1)[None]
-            proxy = proxy / (1.0 + torch.abs(proxy))            # squash to (-1, 1)
-            prio = hit.to(torch.float32) * _LSH_PRIORITY_BOOST + proxy
-        return torch.where(exclusion_mask(cids, tids, tq, qid), float("-inf"), prio)
+            g = (2.0 * zq) @ z.T
+            zn = column_norms(z) if znorm is None else znorm
+        return ops.candidate_priority(hit, g, zn, cids, tids, tq, qid)
 
 
 def budget_hits(kind: str, pval):

@@ -33,7 +33,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("fused_score", "minhash", "lsh_probe", "lsh_probe_gathered",
            "fused_score_q", "profile_distance", "gbdt_infer", "quality_cdf", "topk",
-           "coarse_priority")
+           "coarse_priority", "candidate_priority")
 # built beside the kernels for the timing harness only: an empty kernel's
 # launch floor, and the integer rate of minhash's inner loop
 HARNESS = ("launch_floor", "int_rate")
@@ -80,6 +80,9 @@ _SIGNATURES = {
     },
     "coarse_priority": {
         "freyja_coarse_priority": ([_P] * 8 + [_I, _I, _I, _I, _P], _I),
+    },
+    "candidate_priority": {
+        "freyja_candidate_priority": ([_P] * 8 + [_I, _I, _I, _P], _I),
     },
     "launch_floor": {
         "freyja_launch_floor": ([_P], _I),

@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.device import from_bits, to_bits
 from repro_torch.kernels import ref
+from repro_torch.kernels.candidate_priority import check_args as _candidate_priority_args
+from repro_torch.kernels.candidate_priority import candidate_priority_cuda
 from repro_torch.kernels.coarse_priority import check_args as _coarse_priority_args
 from repro_torch.kernels.coarse_priority import coarse_priority_cuda
 from repro_torch.kernels.gbdt_infer import gbdt_infer_cuda
@@ -24,7 +26,8 @@ from repro_torch.kernels.quality_cdf import quality_cdf_cuda
 from repro_torch.kernels.topk import topk_cuda, topk_meta
 
 __all__ = ["fused_score", "fused_score_q", "minhash", "lsh_probe", "lsh_probe_gathered",
-           "profile_distance", "gbdt_infer", "quality_cdf", "topk", "coarse_priority"]
+           "profile_distance", "gbdt_infer", "quality_cdf", "topk", "coarse_priority",
+           "candidate_priority"]
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -161,3 +164,17 @@ def coarse_priority(hit, proxy, cids, tids, tq, qid, block_c: int):
         _coarse_priority_args(hit, proxy, cids, tids, tq, qid, block_c)
         return ref.coarse_priority_ref(hit, proxy, cids, tids, tq, qid, block_c)
     return coarse_priority_cuda(hit, proxy, cids, tids, tq, qid, block_c)
+
+
+def candidate_priority(hit, g, znorm, cids, tids, tq, qid):
+    """The ``lsh``/``hybrid`` candidate priority over the whole lake (see
+    ``ref.candidate_priority_ref``): ``hit`` (Q, C) int32 from
+    :func:`lsh_probe`; ``g`` (Q, C) float32, ``(2·zq) @ zᵀ``, and ``znorm``
+    (C,) float32, the columns' squared norms, for ``hybrid`` (both None for
+    ``lsh``); ``cids``/``tids`` (C,) and ``tq``/``qid`` (Q,) int64, all
+    contiguous on one device -> (Q, C) float32. On the card the priorities
+    overwrite ``g``."""
+    if not _on_cuda(hit, "candidate_priority"):
+        _candidate_priority_args(hit, g, znorm, cids, tids, tq, qid)
+        return ref.candidate_priority_ref(hit, g, znorm, cids, tids, tq, qid)
+    return candidate_priority_cuda(hit, g, znorm, cids, tids, tq, qid)

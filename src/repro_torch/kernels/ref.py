@@ -125,6 +125,22 @@ def exclusion_mask(cids, tids, tq, qid):
     return pad | self_hit | same_table
 
 
+def candidate_priority_ref(hit, g, znorm, cids, tids, tq, qid):
+    """The ``lsh``/``hybrid`` candidate priority over the whole lake. ``hit``
+    (Q, C) int32 band hits. ``lsh`` (``g`` None): 0 on a hit, -inf off it.
+    ``hybrid``: ``g`` (Q, C) float32 is ``(2·zq) @ zᵀ`` and ``znorm`` (C,)
+    float32 is ``(z * z).sum(1)``; their difference, -||zq - z||² up to a
+    per-query constant, squashed into (-1, 1), plus ``hit·LSH_PRIORITY_BOOST``.
+    Then -inf wherever :func:`exclusion_mask` holds. Returns (Q, C) float32."""
+    if g is None:
+        prio = torch.where(hit > 0, 0.0, float("-inf"))
+    else:
+        proxy = g - znorm[None]
+        proxy = proxy / (1.0 + torch.abs(proxy))            # squash to (-1, 1)
+        prio = hit.to(torch.float32) * LSH_PRIORITY_BOOST + proxy
+    return torch.where(exclusion_mask(cids, tids, tq, qid), float("-inf"), prio)
+
+
 def coarse_priority_ref(hit, proxy, cids, tids, tq, qid, block_c: int):
     """The tiered coarse pass's survivor priority and counts. ``hit`` (Q, C)
     int32 coarse hits; column hits expand to blocks of ``block_c`` contiguous

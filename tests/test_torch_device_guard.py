@@ -4,7 +4,7 @@
 and ``<<<>>>`` act on the calling thread's current device, not on the
 stream's, so each wrapper makes its tensors' device current around its
 ctypes call (``kernels._build.on_device``). On the host, with the library
-and the guard stubbed, each of the ten wrappers must reach its library
+and the guard stubbed, each of the eleven wrappers must reach its library
 only inside the guard and with its tensors' device; on a host with two cards
 (``gpu`` marker), each kernel called with tensors on ``cuda:1`` from a thread
 whose current device is 0 must equal its plain version.
@@ -19,6 +19,7 @@ import torch
 from repro_torch.core import features as FT
 from repro_torch.device import hashes_to_torch, to_bits
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.candidate_priority import candidate_priority_cuda
 from repro_torch.kernels.coarse_priority import coarse_priority_cuda
 from repro_torch.kernels.gbdt_infer import gbdt_infer_cuda
 from repro_torch.kernels.lsh_probe import lsh_probe_cuda, lsh_probe_gathered_cuda
@@ -51,6 +52,7 @@ def _cases(device):
            t(r.uniform(-0.1, 1.1, (4097,)).astype(np.float32)), 0.25, 0.19, 0.44, 0.28, 0.0, 1.0)
     scores = t(r.normal(size=(5, 10_000)).astype(np.float32))
     coarse = _coarse_inputs(r, 5, 1000, t)
+    hit, g, zn, *cand = _candidate_inputs(r, 5, 1000, t)
     return {
         "fused_score": (lambda: ops.fused_score(*score, g),
                         lambda: ref.fused_score_ref(*score, *g)),
@@ -67,6 +69,9 @@ def _cases(device):
         "topk": (lambda: ops.topk(scores, 10), lambda: ref.topk_ref(scores, 10)),
         "coarse_priority": (lambda: _flat(ops.coarse_priority(*coarse, 32)),
                             lambda: _flat(ref.coarse_priority_ref(*coarse, 32))),
+        # the kernel writes over its g: it gets a copy
+        "candidate_priority": (lambda: ops.candidate_priority(hit, g.clone(), zn, *cand),
+                               lambda: ref.candidate_priority_ref(hit, g, zn, *cand)),
     }
 
 
@@ -80,6 +85,14 @@ def _coarse_inputs(r, q: int, c: int, t):
     return (t((r.random((q, c)) < 0.01).astype(np.int32)),
             t(r.normal(0, 4, (q, c)).astype(np.float32)), t(cids), t(tids), t(tids[qid]),
             t(qid))
+
+
+def _candidate_inputs(r, q: int, c: int, t):
+    """The hybrid candidate priority's (hit, g, znorm, cids, tids, tq, qid)
+    through ``t``: the coarse priority's hits, ids and tables, its proxy as g,
+    and positive column norms."""
+    hit, g, *rest = _coarse_inputs(r, q, c, t)
+    return (hit, g, t(r.uniform(0, 40, c).astype(np.float32)), *rest)
 
 
 def _flat(out) -> torch.Tensor:
@@ -123,6 +136,7 @@ def _wrapper_calls():
                                                 0.0, 1.0),
         "topk": lambda: topk_cuda(x, 5),
         "coarse_priority": lambda: coarse_priority_cuda(*_coarse_inputs(r, 3, 40, t), 32),
+        "candidate_priority": lambda: candidate_priority_cuda(*_candidate_inputs(r, 3, 40, t)),
     }
 
 

@@ -218,8 +218,8 @@ from repro_torch.exec.sharded import (build_sharded_pipeline,     # noqa: E402
                                       place_sharded_corpus)
 from repro_torch.exec.executor import (RESCORE_MULT, Executor,    # noqa: E402
                                        _live_ids, pad_rows, pad_topk)
-from repro_torch.exec.plan import (DEFAULT_COLUMN_BUCKETS, Planner,  # noqa: E402
-                                   PlannerConfig, QueryPlan)
+from repro_torch.exec.plan import (DEFAULT_COLUMN_BUCKETS, SURVIVOR_BLOCK,  # noqa: E402
+                                   Planner, PlannerConfig, QueryPlan)
 from repro_torch.kernels import _build, ops, ref                  # noqa: E402
 from repro_torch.kernels.candidate_priority import candidate_priority_cuda  # noqa: E402
 from repro_torch.kernels.coarse_priority import coarse_priority_cuda  # noqa: E402
@@ -933,9 +933,9 @@ def run_plans(run: dict, runs: dict, reps: int) -> None:
     ``reps`` synchronized steady batches; results and walls go into ``run``."""
     for name, (executor, plan, args) in runs.items():
         t0 = time.perf_counter()
-        run["results"][name] = executor.execute(plan, *args)
+        res = executor.execute(plan, *args)
         first = sync_wall(t0)
-        run["tiers"][name] = executor.last_tier_stats()
+        run["results"][name], run["tiers"][name] = res, res.tier
         t0 = time.perf_counter()
         for _ in range(reps):
             executor.execute(plan, *args)
@@ -1317,7 +1317,7 @@ def check_scale_path(run, dev) -> dict:
             tr = reference_tiered(zq, qk, qc, side, scale,
                                   hashes_to_torch(index.keys, dev),
                                   hashes_to_torch(index.coarse, dev), excl, plan,
-                                  executor.survivor_block)
+                                  SURVIVOR_BLOCK)
             gpos = tr["gpos"]
             s = torch.where(tr["valid2"], ref.fused_score_q_ref(zq, wq, side[gpos], scale,
                                                                 w[gpos], *g), float("-inf"))
@@ -1551,7 +1551,7 @@ def plain_serve(ex, plan, zq, wq, tq, qid, qkeys, qcoarse, dev):
         n = stages.live_count(cids).expand(zq.shape[0])
     elif plan.candidates == "tiered":
         tr = reference_tiered(zq, qk, qc, side, scale, ex._ckeys, ex._coarse, excl, plan,
-                              ex.survivor_block)
+                              SURVIVOR_BLOCK)
         gpos = tr["gpos"]
         s = torch.where(tr["valid2"], score(side[gpos], w[gpos]), float("-inf"))
         sc, ids = plain_merge(s, cids[gpos], min(spec["k"], gpos.shape[1]))

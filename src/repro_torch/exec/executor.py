@@ -30,10 +30,13 @@ the device; the float32 source stays on the host. The scan over-fetches
 gathered rows restores the float32 top-k ordering, so returned scores are
 float32-exact whatever the resident dtype.
 
-The returned contract is the JAX package's: numpy ``(scores (Q, k), global
-ids (Q, k), n_scored (Q,))``, padded with -inf / -1 when fewer than k
+``execute`` returns the JAX package's contract: numpy ``(scores (Q, k),
+global ids (Q, k), n_scored (Q,))``, padded with -inf / -1 when fewer than k
 columns are rankable, with ``n_scored`` the number of live columns the GBDT
-actually scored per query (summed over the data shards on a grid).
+actually scored per query (summed over the data shards on a grid), and a
+tiered plan's coarse counts as its ``tier``. The executor publishes no
+events: what a batch did is in what ``execute`` returns and in the calling
+thread's tracing record, and the serving engine publishes from those.
 
 **Lifecycle.** The serving engine keeps one executor per catalog version:
 
@@ -68,9 +71,8 @@ from repro_torch.core import features as FT
 from repro_torch.core.predictor import gbdt_to_torch
 from repro_torch.device import from_bits, hashes_to_torch, resolve_device, to_bits
 from repro_torch.exec import stages, tracing
-from repro_torch.exec.plan import QueryPlan
-from repro_torch.exec.sharded import (PAD_BITS, PAD_FILL, build_sharded_pipeline,
-                                      place_sharded_corpus)
+from repro_torch.exec.plan import SURVIVOR_BLOCK, QueryPlan
+from repro_torch.exec.sharded import PAD_FILL, build_sharded_pipeline, place_sharded_corpus
 from repro_torch.kernels.lsh_probe import PAD_QUERY
 from repro_torch.kernels.profile_distance import dequantize, quantize_profiles
 
@@ -168,6 +170,17 @@ def pad_topk(scores: np.ndarray, ids: np.ndarray, k: int):
             np.pad(ids, pad, constant_values=-1))
 
 
+class BatchResult(tuple):
+    """What :meth:`Executor.execute` returns: the JAX package's 3-tuple
+    ``(scores, ids, n_scored)``, and as ``tier`` a tiered plan's
+    ``(n_hits (Q,), n_survivors (Q,))`` per query, else None."""
+
+    def __new__(cls, scores, ids, n_scored, tier=None):
+        out = super().__new__(cls, (scores, ids, n_scored))
+        out.tier = tier
+        return out
+
+
 class Executor:
     """Executes query plans against one corpus view on ``device``, and
     sharded plans over the tiles of ``mesh``.
@@ -176,9 +189,9 @@ class Executor:
     resident sidecar; a caller that already quantized passes the sidecar as
     ``z`` and its scale as ``z_scale``. ``fp32_rows`` (``ids -> (..., F)
     float32``) overrides the host float32 source of the exact re-rank.
-    ``n_padded`` pads the corpus to that many rows with sentinel rows;
-    ``events`` is a sink with ``publish(type, **payload)``. ``device``
-    defaults to the mesh's first device with a mesh, else to the card.
+    ``n_padded`` pads the corpus to that many rows with sentinel rows.
+    ``device`` defaults to the mesh's first device with a mesh, else to the
+    card.
     """
 
     def __init__(self, z: np.ndarray, w: np.ndarray, gbdt_tuple, *,
@@ -186,56 +199,84 @@ class Executor:
                  band_keys: np.ndarray | None = None,
                  coarse_keys: np.ndarray | None = None,
                  profile_dtype: str = "fp32", z_scale=None, fp32_rows=None,
-                 survivor_block: int = 32, events=None,
-                 n_padded: int | None = None, device=None, mesh=None):
-        if device is None and mesh is not None:
+                 n_padded: int | None = None, device=None, mesh=None, _base=None):
+        # ``_base`` is the predecessor :meth:`extended` grows: the rows given
+        # are then its delta, and everything but the rows is shared with it
+        base = _base
+        if base is not None:
+            device, mesh, profile_dtype = base.device, base.mesh, base.profile_dtype
+        elif device is None and mesh is not None:
             device = mesh.devices.flat[0]
         self.device = resolve_device(device)
         self.mesh = mesh
+        self.profile_dtype = str(profile_dtype)
         # n_live: the true resident columns; n_columns: the (bucket-padded)
         # corpus axis every plan clamp is computed from
-        self.n_live = int(z.shape[0])
-        self.n_columns = (max(int(n_padded), self.n_live) if n_padded is not None
-                          else self.n_live)
-        self.profile_dtype = str(profile_dtype)
-        self.survivor_block = int(survivor_block)
-        if z_scale is not None:
+        start = 0 if base is None else base.n_live
+        self.n_live = n_live = start + int(z.shape[0])
+        if n_padded is None:
+            n_padded = n_live if base is None else base.n_columns
+        self.n_columns = n = max(int(n_padded), n_live)
+        # host -> device bytes this placement spent (a successor counts only
+        # its delta rows)
+        self.bytes_uploaded = 0
+        if base is not None:
+            z_res = np.asarray(z, np.float32)
+        elif z_scale is not None:
             z_res, scale = np.asarray(z), np.asarray(z_scale, np.float32)
-            zf_host = None                   # pre-quantized: no float32 source
         else:
             z_res, scale = quantize_profiles(z, self.profile_dtype)
-            zf_host = None if self.profile_dtype == "fp32" else np.asarray(z, np.float32)
-        # the exact re-rank's row source: an explicit callable, the host
-        # float32 copy of a quantized corpus, or None (the scan is exact)
-        if fp32_rows is not None:
-            self._fp32_rows = fp32_rows
-        elif zf_host is not None:
-            self._fp32_rows = zf_host.__getitem__
+            # the exact re-rank's row source: an explicit callable, the host
+            # float32 copy of a quantized corpus, or None (the scan is exact)
+            if fp32_rows is None and self.profile_dtype != "fp32":
+                fp32_rows = np.asarray(z, np.float32).__getitem__
+        self._fp32_rows = fp32_rows
+        host = dict(z=z_res, w=_bits(w),
+                    tids=(np.asarray(table_ids, np.int32) if table_ids is not None
+                          else np.zeros((int(z.shape[0]),), np.int32)),
+                    # the probes test key equality only: the resident keys are
+                    # int32 bit-views, so no probe call converts the lake's keys
+                    ckeys=None if band_keys is None else _bits(band_keys),
+                    coarse=None if coarse_keys is None else _bits(coarse_keys))
+        shared = base is not None and start == n_live and n == base.n_columns
+        if base is None:
+            rows = self._upload_rows(host, n)
+            rows["cids"] = _live_ids(n_live, n, self.device)
+            self._zscale = self._upload(scale)
+            self._gbdt = gbdt_to_torch(gbdt_tuple, self.device)
+            self._gbdt_bundle = PlacementBundle(
+                {f"gbdt{i}": a for i, a in enumerate(self._gbdt[:3])})
         else:
-            self._fp32_rows = None
-        n = self.n_columns
-        tids = (np.asarray(table_ids, np.int32) if table_ids is not None
-                else np.zeros((self.n_live,), np.int32))
-        # host -> device bytes this placement spent (a successor built by
-        # ``extended`` counts only its delta rows)
-        self.bytes_uploaded = 0
-        rows = dict(
-            z=self._upload(_pad_np(z_res, n, PAD_FILL["z"])),
-            w=from_bits(self._upload(_pad_np(_bits(w), n, -1))),   # -1: HASH_SENTINEL
-            tids=self._upload(_pad_np(tids, n, PAD_FILL["tids"])).to(torch.int64),
-            cids=_live_ids(self.n_live, n, self.device),
-            # the probes test key equality only: the resident keys are int32
-            # bit-views, so no probe call converts the lake's keys
-            ckeys=(self._upload(_pad_np(_bits(band_keys), n, PAD_BITS))
-                   if band_keys is not None else None),
-            coarse=(self._upload(_pad_np(_bits(coarse_keys), n, PAD_BITS))
-                    if coarse_keys is not None else None))
-        self._zscale = self._upload(scale)
-        self._adopt_rows(rows, PlacementBundle(dict(rows, zscale=self._zscale)))
-        self._gbdt = gbdt_to_torch(gbdt_tuple, self.device)
-        self._gbdt_bundle = PlacementBundle(
-            {f"gbdt{i}": a for i, a in enumerate(self._gbdt[:3])})
-        self._init_serving(events, warm=set(), seen=set())
+            self._zscale, self._gbdt = base._zscale, base._gbdt
+            self._gbdt_bundle = base._gbdt_bundle.retain()
+            if shared:                  # a zero-row delta at the same size
+                rows = base._rows()
+            else:
+                delta = self._upload_rows(host)
+                delta["cids"] = torch.arange(start, n_live, device=self.device)
+                rows = {k: None if old is None else _grown(old, start, delta[k], n, PAD_FILL[k])
+                        for k, old in base._rows().items()}
+        self._z, self._w = rows["z"], rows["w"]
+        self._tids, self._cids = rows["tids"], rows["cids"]
+        self._ckeys, self._coarse = rows["ckeys"], rows["coarse"]
+        self._rows_bundle = (base._rows_bundle.retain() if shared
+                             else PlacementBundle(dict(rows, zscale=self._zscale)))
+        # the columns' squared norms for the proxy: computed by the
+        # placement's first hybrid or tiered batch (the warm-up's), kept
+        # until close
+        self._znorm = base._znorm if shared else None
+        # warmup's dispatch table: the (pipeline, batch, corpus, statics)
+        # units ``aot_compile`` ran, and the (kind, k, budget, grid, batch)
+        # shapes ``first_contact`` has seen; a successor inherits both
+        self._warm = set() if base is None else set(base._warm)
+        self._seen_shapes = set() if base is None else set(base._seen_shapes)
+        self._dispatch_stats = {"aot": 0, "fallback": 0}
+        self._closed = False
+        # sharded state, built lazily: grid meshes per grid, placements per
+        # (grid, data axes), pipelines per (kind, k, budget, axes, grid)
+        self._grid_meshes: dict[tuple, object] = {}
+        self._placed: dict[tuple, dict] = {}
+        self._pipelines: dict[tuple, object] = {}
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         a = np.ascontiguousarray(a)
@@ -244,35 +285,21 @@ class Executor:
         self.bytes_uploaded += int(a.nbytes)
         return torch.from_numpy(a).to(self.device)
 
-    def _adopt_rows(self, rows: dict, bundle: PlacementBundle) -> None:
-        self._z, self._w = rows["z"], rows["w"]
-        self._tids, self._cids = rows["tids"], rows["cids"]
-        self._ckeys, self._coarse = rows["ckeys"], rows["coarse"]
-        self._rows_bundle = bundle
-        # the columns' squared norms for the hybrid proxy: computed by the
-        # placement's first hybrid batch (the warm-up's), kept until close
-        self._znorm = None
+    def _upload_rows(self, host: dict, n: int | None = None) -> dict:
+        """Host rows (hashes and keys as int32 bit-views) on the device, the
+        words widened, the table ids int64; ``n`` pads them with sentinels."""
+        out = {}
+        for k, a in host.items():
+            if a is not None and n is not None:     # -1: HASH_SENTINEL's bits
+                a = _pad_np(a, n, -1 if k == "w" else PAD_FILL[k])
+            out[k] = None if a is None else self._upload(a)
+        out["w"] = from_bits(out["w"])
+        out["tids"] = out["tids"].to(torch.int64)
+        return out
 
     def _rows(self) -> dict:
         return dict(z=self._z, w=self._w, tids=self._tids, cids=self._cids,
                     ckeys=self._ckeys, coarse=self._coarse)
-
-    def _init_serving(self, events, warm: set, seen: set) -> None:
-        # warmup's dispatch table: the (pipeline, batch, corpus, statics)
-        # units ``aot_compile`` ran; a successor inherits it
-        self._warm = warm
-        self._seen_shapes = seen
-        self._dispatch_stats = {"aot": 0, "fallback": 0}
-        # observability: a duck-typed event sink; the first execution of a
-        # (plan, batch shape) is a visible compile_begin/compile_end pair
-        self._events = events
-        self._closed = False
-        self._tls = threading.local()
-        # sharded state, built lazily: grid meshes per grid, placements per
-        # (grid, data axes), pipelines per (kind, k, budget, axes, grid)
-        self._grid_meshes: dict[tuple, object] = {}
-        self._placed: dict[tuple, dict] = {}
-        self._pipelines: dict[tuple, object] = {}
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -325,46 +352,19 @@ class Executor:
             raise ValueError("band_keys must match the predecessor's")
         if (self._coarse is None) != (coarse_keys is None):
             raise ValueError("coarse_keys must match the predecessor's")
-        z_rows = np.asarray(z_rows, np.float32)
-        d = int(z_rows.shape[0])
-        n_live2 = self.n_live + d
-        n_pad2 = (max(int(n_padded), n_live2) if n_padded is not None
-                  else max(self.n_columns, n_live2))
-        ex = object.__new__(Executor)
-        ex.device, ex.mesh, ex.profile_dtype = self.device, self.mesh, self.profile_dtype
-        ex.survivor_block = self.survivor_block
-        ex.n_live, ex.n_columns = n_live2, n_pad2
-        ex._fp32_rows = fp32_rows
-        ex._zscale = self._zscale
-        ex._gbdt = self._gbdt
-        ex._gbdt_bundle = self._gbdt_bundle.retain()
-        ex.bytes_uploaded = 0
-        if d == 0 and n_pad2 == self.n_columns:
-            ex._adopt_rows(self._rows(), self._rows_bundle.retain())
-            ex._znorm = self._znorm
-        else:
-            delta = dict(
-                z=ex._upload(z_rows),
-                w=from_bits(ex._upload(_bits(w_rows))),
-                tids=ex._upload(np.asarray(table_ids, np.int32)).to(torch.int64),
-                cids=torch.arange(self.n_live, n_live2, device=self.device),
-                ckeys=None if band_keys is None else ex._upload(_bits(band_keys)),
-                coarse=None if coarse_keys is None else ex._upload(_bits(coarse_keys)))
-            rows = {k: None if old is None else
-                    _grown(old, self.n_live, delta[k], n_pad2, PAD_FILL[k])
-                    for k, old in self._rows().items()}
-            ex._adopt_rows(rows, PlacementBundle(dict(rows, zscale=ex._zscale)))
-        ex._init_serving(self._events, warm=set(self._warm), seen=set(self._seen_shapes))
-        return ex
+        return Executor(np.asarray(z_rows, np.float32), w_rows, None, table_ids=table_ids,
+                        band_keys=band_keys, coarse_keys=coarse_keys, fp32_rows=fp32_rows,
+                        n_padded=n_padded, _base=self)
 
     # -- warmup -------------------------------------------------------------
 
-    def aot_compile(self, entries, *, n_columns: int | None = None) -> dict:
+    def aot_compile(self, entries, *, n_columns: int | None = None,
+                    progress=lambda name, n_queries, remaining, ms: None) -> dict:
         """Warm every ``(plan, padded_batch)`` pair in ``entries``: run each
         pipeline unit once on sentinel queries (zero profiles, sentinel
         words, ``PAD_QUERY`` band keys), so every kernel library is loaded,
         every first-contact cost is paid, and the first real batch of a
-        warmed shape is dispatched as warm with no compile attribution.
+        warmed shape is dispatched as warm.
 
         ``n_columns`` warms for another corpus size, the background
         next-bucket warm ahead of a crossing: the units run on a stand-in
@@ -372,9 +372,10 @@ class Executor:
         and padded), which is closed afterwards; the warmed units land in
         this executor's table, which successors inherit.
 
-        Publishes ``compile_begin``/``compile_end`` (``source="warmup"``) and
-        ``executable_cache_miss`` (with a ``remaining`` countdown) per unit.
-        Plans this corpus cannot serve count as skips. Returns a report."""
+        ``progress(name, n_queries, remaining, ms)`` hears of each unit that
+        runs: before it with ``ms=None``, after it with its wall and the
+        count of units still to visit. Plans this corpus cannot serve count
+        as skips. Returns a report."""
         if self._closed:
             raise RuntimeError("executor is closed")
         target = self
@@ -406,22 +407,16 @@ class Executor:
                 if key in self._warm:
                     report["already_warm"] += 1
                     continue
-                if self._events is not None:
-                    self._events.publish("compile_begin", plan=key[0], grid=[],
-                                         n_queries=q, k=0, source="warmup")
+                progress(key[0], q, remaining, None)
                 t0 = time.perf_counter()
                 target._warm_run(plan, q)
                 ms = (time.perf_counter() - t0) * 1e3
                 report["cache_misses"] += 1
                 report["compile_ms"] += ms
-                if self._events is not None:
-                    self._events.publish("executable_cache_miss", name=key[0],
-                                         n_queries=q, remaining=remaining)
-                    self._events.publish("compile_end", plan=key[0], grid=[],
-                                         n_queries=q, k=0, ms=ms, source="warmup")
+                progress(key[0], q, remaining, ms)
                 self._warm.add(key)
             for plan, q in planned:
-                self._seen_shapes.add((plan.kind, plan.k, plan.budget, plan.grid, q))
+                self.first_contact(plan, q)
         finally:
             if target is not self:
                 target.close()
@@ -462,19 +457,23 @@ class Executor:
                    if self._coarse is not None else None)
         self._run(plan, zq, wq, none, none, qkeys, qcoarse)
 
+    def first_contact(self, plan: QueryPlan, q: int) -> bool:
+        """Mark ``plan``'s (kind, k, budget, grid) shape at padded batch ``q``
+        as seen (successors inherit it); True the first time."""
+        key = (plan.kind, plan.k, plan.budget, plan.grid, int(q))
+        first = key not in self._seen_shapes
+        self._seen_shapes.add(key)
+        return first
+
     def dispatch_stats(self) -> dict:
         """Warm vs first-contact dispatch counts: a warmed engine serving
         only ladder shapes shows zero fallbacks."""
         return dict(self._dispatch_stats)
 
-    def last_compile_ms(self) -> float | None:
-        """First-contact wall of this thread's most recent ``execute``, or
-        None when the shape was already warm."""
-        return getattr(self._tls, "compile_ms", None)
-
     # -- entry point --------------------------------------------------------
 
-    def execute(self, plan: QueryPlan, zq, wq, tq, qid, qkeys=None, qcoarse=None):
+    def execute(self, plan: QueryPlan, zq, wq, tq, qid, qkeys=None,
+                qcoarse=None) -> BatchResult:
         """Run ``plan`` for a query batch.
 
         ``zq`` (Q, F_NUM) float32, ``wq`` (Q, F_WORDS) uint32; ``tq`` (Q,)
@@ -484,18 +483,16 @@ class Executor:
         digest keys, required by tiered plans. The calling thread's active
         :class:`~repro_torch.exec.tracing.Record`, if any, takes the stages'
         spans, their device intervals and the batch's counters. Returns numpy
-        ``(scores (Q, k), ids (Q, k), n_scored (Q,))``.
+        ``(scores (Q, k), ids (Q, k), n_scored (Q,))`` with ``.tier``.
         """
         if self._closed:
             raise RuntimeError("executor is closed (its snapshot version was "
                                "retired); pin a live version instead")
         q = int(np.asarray(zq).shape[0])
-        self._tls.tier_stats = None
-        self._tls.compile_ms = None
         if self.n_live == 0 or q == 0:
-            return (np.full((q, plan.k), -np.inf, np.float32),
-                    np.full((q, plan.k), -1, np.int32),
-                    np.zeros((q,), np.int32))
+            return BatchResult(np.full((q, plan.k), -np.inf, np.float32),
+                               np.full((q, plan.k), -1, np.int32),
+                               np.zeros((q,), np.int32))
         if plan.candidates != "all":
             if self._ckeys is None:
                 raise ValueError(f"plan {plan.kind!r} needs LSH band keys, "
@@ -512,52 +509,16 @@ class Executor:
                 raise ValueError("plan 'tiered' needs coarse query keys")
         if plan.sharded and self.mesh is None:
             raise ValueError(f"plan {plan.kind!r} needs a mesh")
-        # first contact with this (kind, k, budget, grid, batch shape) is a
-        # visible compile_begin/compile_end pair, its wall a thread-local
-        # the engine folds into the request trace
-        shape_key = (plan.kind, plan.k, plan.budget, plan.grid, q)
-        first = shape_key not in self._seen_shapes
-        self._seen_shapes.add(shape_key)
         self._dispatch_stats["aot" if self._unit(plan, q) in self._warm
                              else "fallback"] += 1
-        if first and self._events is not None:
-            self._events.publish("compile_begin", plan=plan.kind,
-                                 grid=list(plan.grid), n_queries=q, k=plan.k)
-        tr = tracing.current()
-        t0 = time.perf_counter()
-        sc, ids, n, tier = self._run(plan, zq, wq, tq, qid, qkeys, qcoarse, tr)
-        if first:
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            self._tls.compile_ms = wall_ms
-            if self._events is not None:
-                self._events.publish("compile_end", plan=plan.kind,
-                                     grid=list(plan.grid), n_queries=q,
-                                     k=plan.k, ms=wall_ms)
-        self._tls.tier_stats = tier
-        if tier is not None:
-            tr.count("digest_hits", tier[0].sum())
-            tr.count("survivors", tier[1].sum())
-        if tier is not None and self._events is not None:
-            n_hits, n_surv = tier
-            self._events.publish(
-                "coarse_pass", n_queries=q, n_columns=self.n_live,
-                survivor_budget=plan.survivor_budget,
-                hits_mean=float(n_hits.mean()),
-                survivors_mean=float(n_surv.mean()),
-                survivors_max=int(n_surv.max()),
-                survivor_fraction=float(n_surv.mean()) / max(self.n_live, 1))
-            self._events.publish(
-                "fine_probe", n_queries=q, budget=plan.budget,
-                survivor_budget=plan.survivor_budget, scored_mean=float(n.mean()))
-        return sc, ids, n
+        return self._run(plan, zq, wq, tq, qid, qkeys, qcoarse, tracing.current())
 
-    def _run(self, plan: QueryPlan, zq, wq, tq, qid, qkeys, qcoarse, tr=tracing.NULL):
-        """The pipeline itself: numpy ``(scores, ids, n_scored, tier)``, with
-        ``tier`` the tiered plan's (n_hits, n_survivors) or None. Every
-        result is on the host when it returns. ``tr`` takes the stages:
-        ``upload``, the plan's own, ``rerank`` over a quantized corpus, and
-        ``download``, whose end, on the synchronized stream, anchors the
-        device times."""
+    def _run(self, plan: QueryPlan, zq, wq, tq, qid, qkeys, qcoarse,
+             tr=tracing.NULL) -> BatchResult:
+        """The pipeline itself. Every result is on the host when it returns.
+        ``tr`` takes the stages: ``upload``, the plan's own, ``rerank`` over
+        a quantized corpus, and ``download``, whose end, on the synchronized
+        stream, anchors the device times, and the batch's counters."""
         dev = self.device
         local = not plan.sharded
         with tr.stage("upload", defer=True) as up:
@@ -597,13 +558,12 @@ class Executor:
         if hits is not None:
             tr.count("prune_hits", out.pop())
         out = [t.numpy() for t in out]
+        if tier is not None:
+            tier = tuple(out[3:])
+            tr.count("digest_hits", tier[0].sum())
+            tr.count("survivors", tier[1].sum())
         sc, ids = pad_topk(out[0], out[1], plan.k)
-        return sc, ids, out[2], (tuple(out[3:]) if tier is not None else None)
-
-    def last_tier_stats(self):
-        """``(n_hits (Q,), n_survivors (Q,))`` of this thread's most recent
-        ``execute`` if it ran a tiered plan, else None."""
-        return getattr(self._tls, "tier_stats", None)
+        return BatchResult(sc, ids, out[2], tier)
 
     def _local_spec(self, plan: QueryPlan) -> dict:
         """The k/budget clamps of the JAX executor's ``_local_spec``:
@@ -671,11 +631,12 @@ class Executor:
         with tr.stage("coarse"):
             with tr.stage("fill"):
                 zf = dequantize(self._z, self._zscale)
-                # -||zq - z||² up to a per-query constant: 2·zq@zᵀ - ||z||²
-                fill = (2.0 * zq) @ zf.T - (zf * zf).sum(1)[None]
+                if self._znorm is None:
+                    self._znorm = stages.column_norms(zf)
+                fill = stages.proxy_product(zq, zf) - self._znorm[None]
             pos, valid, n_hits, n_surv = stages.tiered_survivors(
                 qcoarse, self._coarse, self._cids, self._tids, tq, qid,
-                survivor_budget=survivor_budget, block_c=self.survivor_block, proxy=fill,
+                survivor_budget=survivor_budget, block_c=SURVIVOR_BLOCK, proxy=fill,
                 stage=tr.stage)
         with tr.stage("fine"):
             # the fine probe reads the survivors' band keys in place through pos

@@ -53,6 +53,12 @@ DEFAULT_BATCH_BUCKETS = (8, 16, 32, 64, 128, 256)
 DEFAULT_COLUMN_BUCKETS = (1024, 2048, 4096, 8192, 16384, 32768,
                           65536, 131072)
 
+# The tiered stage's survivor-block granularity: the coarse pass expands a
+# digest hit to its block of this many contiguous columns, and the planner
+# rounds the survivor budget up to a whole number of blocks.
+SURVIVOR_BLOCK = 32
+
+
 @dataclasses.dataclass(frozen=True)
 class QueryPlan:
     """One fully-resolved execution plan for a query micro-batch."""
@@ -117,7 +123,6 @@ class PlannerConfig:
     column_buckets: tuple = ()
     # ---- tiered candidate stage ----
     n_coarse_bands: int = 16        # super-band digest width S
-    survivor_block: int = 32        # coarse survivor-block granularity
     survivor_frac: float = 0.05     # survivor budget as a fraction of the lake
     min_survivors: int = 512        # survivor budget floor
     # the survivor width is also the scoring width (tiered plans cap their
@@ -151,8 +156,7 @@ class Planner:
         cfg = self.config
         want = max(int(n_columns * cfg.survivor_frac), cfg.min_survivors)
         want = min(want, cfg.max_survivors, max(n_columns, 1))
-        blk = max(int(cfg.survivor_block), 1)
-        return min(max(n_columns, 1), -(-want // blk) * blk)
+        return min(max(n_columns, 1), -(-want // SURVIVOR_BLOCK) * SURVIVOR_BLOCK)
 
     @staticmethod
     def _snap(n: int, ladder) -> int:

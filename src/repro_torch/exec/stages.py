@@ -62,6 +62,13 @@ def column_norms(z):
     return (z * z).sum(1)
 
 
+def proxy_product(zq, z):
+    """(Q, C) float32 ``2·zq@zᵀ``: the proxy's matrix product. Less the
+    :func:`column_norms` of ``z`` it is -||zq - z||² up to a per-query
+    constant, the profile-space nearness of every column to every query."""
+    return (2.0 * zq) @ z.T
+
+
 def candidate_priorities(kind: str, zq, qkeys, z, ckeys, cids, tids, tq, qid, *,
                          znorm=None, stage=tracing.NULL.stage):
     """(Q, C) float32 priorities; -inf means "never a candidate".
@@ -82,8 +89,7 @@ def candidate_priorities(kind: str, zq, qkeys, z, ckeys, cids, tids, tq, qid, *,
     with stage("priority"):
         g = zn = None
         if kind == "hybrid":
-            # -||zq - z||² up to a per-query constant: 2·zq@zᵀ - ||z||²
-            g = (2.0 * zq) @ z.T
+            g = proxy_product(zq, z)
             zn = column_norms(z) if znorm is None else znorm
         return ops.candidate_priority(hit, g, zn, cids, tids, tq, qid)
 

@@ -245,8 +245,7 @@ def open_loop_mode(args, engine, qids, closed_qps: float) -> None:
             for i, q in enumerate(qids)]
     # warm every bucket's shape BEFORE offering load, so the first formed
     # batch at each size pays no first-contact cost against its deadline
-    engine.config.batch_buckets = buckets
-    engine.planner.config.batch_buckets = buckets
+    engine.install_buckets(buckets)
     rep = engine.warmup("serve")
     print(f"open-loop warmup: {rep['n_executables']} units in {rep['wall_ms']:.0f}ms")
     r = run_open_loop(engine, pool, offered, args.open_loop_duration,

@@ -20,9 +20,10 @@ module owns only serving concerns:
   are profiled and signed once per signature geometry and stashed on the
   request, so a scheduler can pay that device work at submit time);
 * micro-batch padding to the next ``batch_pad`` multiple or, with a bucket
-  ladder (``EngineConfig.batch_buckets``, installed by the
-  :class:`~repro_torch.service.scheduler.RequestScheduler`), to the
-  smallest ladder bucket that fits;
+  ladder installed (:meth:`DiscoveryEngine.install_buckets`, from
+  ``EngineConfig.batch_buckets`` at construction, by the
+  :class:`~repro_torch.service.scheduler.RequestScheduler` or by
+  ``warmup``), to the smallest ladder bucket that fits;
 * a **cost-aware LRU cache** namespaced by snapshot version, so a result
   computed against version v can never answer a query served at v+1;
 * **follower mode** (:meth:`DiscoveryEngine.follow`) and the incremental
@@ -30,7 +31,8 @@ module owns only serving concerns:
   extends the resident state by its delta rows (``Executor.extended``);
 * warmup (:meth:`DiscoveryEngine.warmup`): every bucket of the ladder x the
   plans the mode serves, run once before traffic;
-* per-plan serving statistics via :meth:`DiscoveryEngine.stats`.
+* per-plan serving statistics via :meth:`DiscoveryEngine.stats`, and the
+  serving plane's events, the executor's compiles and tier counts included.
 
 Modes (``EngineConfig.mode``): ``lsh`` (the hybrid pruned plan, sharded
 over the mesh when the engine has one of several devices), ``full`` (brute
@@ -93,11 +95,11 @@ class EngineConfig:
     # in-kernel); parity vs fp32 top-k is test-gated
     profile_dtype: str = "fp32"
     batch_pad: int = 8                 # pad micro-batches to this multiple
-    # padded-batch bucket ladder: when set, micro-batches snap UP to the
-    # smallest bucket that fits instead of the next batch_pad multiple, so
-    # only the ladder's shapes are ever compiled/planned.  None = legacy
-    # batch_pad padding; the continuous-batching scheduler installs its
-    # ladder here at construction (see service.scheduler)
+    # padded-batch bucket ladder installed at construction: micro-batches
+    # snap UP to the smallest bucket that fits instead of the next
+    # batch_pad multiple, so only the ladder's shapes are ever
+    # compiled/planned.  None = batch_pad padding until a scheduler or
+    # warmup installs one (DiscoveryEngine.install_buckets)
     batch_buckets: tuple | None = None
     cache_entries: int = 1024
     exclude_same_table: bool = True
@@ -115,12 +117,10 @@ class EngineConfig:
     # also turns the tracer's device times and profiler ranges on (as a
     # running torch.profiler does; see repro_torch.exec.tracing)
     metrics: bool = False
-    event_capacity: int = 8192
     # warmup: False = first-contact costs on the serving path; True /
     # "serve" = run the bucket-ladder plans the configured mode would serve
     # once before traffic; "full" = every admissible (bucket × plan kind).
     # The scheduler holds batch dispatch until ``engine.warm_event`` sets
-    # (see SchedulerConfig.wait_for_warm)
     warmup: bool | str = False
     # the JAX package's persistent executable cache: must stay None (the
     # port raises when it is set — see _NO_EXECUTABLE_CACHE)
@@ -200,9 +200,9 @@ class DiscoveryEngine:
             n_bands=config.lsh.n_bands,
             n_coarse_bands=config.lsh.n_coarse_bands,
             shard_axes=tuple(config.shard_axes),
-            batch_buckets=tuple(config.batch_buckets or ()),
             column_buckets=tuple(config.column_buckets or ())),
             cost_fn=config.cost_fn)
+        self.install_buckets(config.batch_buckets or ())
         self._cache: OrderedDict[bytes, tuple[list[ColumnMatch], float]] = \
             OrderedDict()
         self._cache_lock = threading.Lock()
@@ -237,7 +237,7 @@ class DiscoveryEngine:
         self.metrics = None
         if config.metrics and events is None:
             from repro_torch.service.metrics import ServiceMetrics
-            self.events = EV.EventBus(capacity=config.event_capacity)
+            self.events = EV.EventBus()
             self.metrics = ServiceMetrics(self.events)
         # warmup plane: warm_event starts SET so a never-warmed engine (or
         # a scheduler racing construction) is not held hostage — warmup()
@@ -396,8 +396,7 @@ class DiscoveryEngine:
         """Kick a background warm of the NEXT column bucket once occupancy
         crosses ``prewarm_fraction``, so a future bucket-boundary crossing
         swaps onto warmed units."""
-        if not (self.planner.config.column_buckets
-                and self.planner.config.batch_buckets):
+        if not (self.planner.config.column_buckets and self.batch_buckets):
             return
         cur = st.executor.n_columns
         if st.snapshot.n_columns < self.config.prewarm_fraction * cur:
@@ -425,14 +424,9 @@ class DiscoveryEngine:
         bucket capacity; tests call it directly."""
         st = self._pin()
         try:
-            bb = (self.planner.config.batch_buckets
-                  or tuple(DEFAULT_BATCH_BUCKETS))
-            entries = [(plan, b) for b in sorted({int(x) for x in bb})
-                       for plan in self.planner.plan_set(
-                           n_columns=int(bucket), n_queries=b,
-                           mode=self.config.mode, mesh=self.mesh,
-                           grid=self.config.grid, scope="serve")]
-            return st.executor.aot_compile(entries, n_columns=int(bucket))
+            return st.executor.aot_compile(self._ladder_plans(int(bucket), "serve"),
+                                           n_columns=int(bucket),
+                                           progress=self._warm_progress)
         finally:
             self._release(st)
 
@@ -457,6 +451,18 @@ class DiscoveryEngine:
         ``RequestScheduler.__init__``; the latest attached wins)."""
         self._scheduler = scheduler
 
+    @property
+    def batch_buckets(self) -> tuple:
+        """The installed padded-batch ladder, ascending; empty when none is
+        (micro-batches then pad to the next ``batch_pad`` multiple)."""
+        return self.planner.config.batch_buckets
+
+    def install_buckets(self, buckets) -> None:
+        """Install the padded-batch ladder micro-batches snap to, its one
+        copy. It outlives the scheduler that installed it: padding is
+        result-transparent, and shape reuse is the point."""
+        self.planner.config.batch_buckets = tuple(sorted({int(b) for b in buckets}))
+
     # -- AOT warmup ----------------------------------------------------------
 
     def warmup(self, scope: str | None = None) -> dict:
@@ -467,8 +473,9 @@ class DiscoveryEngine:
         admissible candidate kind), each run once on sentinel queries
         (``Executor.aot_compile``).
 
-        ``warm_event`` is cleared for the duration; a scheduler with
-        ``wait_for_warm`` holds batch dispatch until it sets again.
+        With no ladder installed, installs the default one first, so serving
+        pads onto the warmed shapes. ``warm_event`` is cleared for the
+        duration; a scheduler holds batch dispatch until it sets again.
         Returns (and stashes as ``warmup_report``) the compile/hit counts
         and walls."""
         if scope is None:
@@ -477,29 +484,19 @@ class DiscoveryEngine:
         if scope not in ("serve", "full"):
             raise ValueError(f"unknown warmup scope {scope!r}; "
                              f"want 'serve' or 'full'")
-        if not self.planner.config.batch_buckets:
-            # no ladder configured (scheduler not constructed yet, or a
-            # direct-call engine): warm the default ladder, and install it
-            # so serving actually pads onto the warmed shapes
-            ladder = tuple(DEFAULT_BATCH_BUCKETS)
-            self.config.batch_buckets = ladder
-            self.planner.config.batch_buckets = ladder
-        buckets = tuple(sorted({int(b)
-                                for b in self.planner.config.batch_buckets}))
+        if not self.batch_buckets:
+            self.install_buckets(DEFAULT_BATCH_BUCKETS)
+        buckets = self.batch_buckets
         t0 = time.perf_counter()
         self.warm_event.clear()
         st = self._pin()
         try:
-            entries = [(plan, b) for b in buckets
-                       for plan in self.planner.plan_set(
-                           n_columns=st.executor.n_columns, n_queries=b,
-                           mode=self.config.mode, mesh=self.mesh,
-                           grid=self.config.grid, scope=scope)]
+            entries = self._ladder_plans(st.executor.n_columns, scope)
             if self.events is not None:
                 self.events.publish(EV.WARMUP_BEGIN, scope=scope,
                                     buckets=list(buckets),
                                     n_plans=len(entries))
-            report = st.executor.aot_compile(entries)
+            report = st.executor.aot_compile(entries, progress=self._warm_progress)
         finally:
             self._release(st)
             self.warm_event.set()
@@ -515,6 +512,28 @@ class DiscoveryEngine:
                 wall_ms=report["wall_ms"])
         self.warmup_report = report
         return report
+
+    def _ladder_plans(self, n_columns: int, scope: str) -> list:
+        """``(plan, batch)`` for each rung of the installed ladder (else the
+        default one) and each plan ``scope`` warms at ``n_columns``."""
+        return [(plan, b) for b in self.batch_buckets or DEFAULT_BATCH_BUCKETS
+                for plan in self.planner.plan_set(
+                    n_columns=n_columns, n_queries=b, mode=self.config.mode,
+                    mesh=self.mesh, grid=self.config.grid, scope=scope)]
+
+    def _warm_progress(self, name: str, n_queries: int, remaining: int, ms) -> None:
+        """``Executor.aot_compile``'s report of one unit as events:
+        ``compile_begin`` before it runs (``ms`` None), then
+        ``executable_cache_miss`` and ``compile_end``."""
+        if self.events is None:
+            return
+        unit = dict(plan=name, grid=[], n_queries=n_queries, k=0)
+        if ms is None:
+            self.events.publish(EV.COMPILE_BEGIN, **unit, source="warmup")
+            return
+        self.events.publish(EV.EXECUTABLE_CACHE_MISS, name=name,
+                            n_queries=n_queries, remaining=remaining)
+        self.events.publish(EV.COMPILE_END, **unit, ms=ms, source="warmup")
 
     def _maybe_follow(self, force: bool = False) -> None:
         reader = self._reader
@@ -559,8 +578,7 @@ class DiscoveryEngine:
                 table_ids=snapshot.table_ids, band_keys=lsh.keys,
                 coarse_keys=lsh.coarse, profile_dtype=dt,
                 z_scale=scale, fp32_rows=zv.__getitem__,
-                events=self.events, n_padded=n_pad, device=self.device,
-                mesh=self.mesh)
+                n_padded=n_pad, device=self.device, mesh=self.mesh)
             return _VersionState(snapshot=snapshot, z=zv, w=w, lsh=lsh,
                                  executor=executor, mean=mean, std=std,
                                  moments=moments)
@@ -569,7 +587,7 @@ class DiscoveryEngine:
             z, w, self.model.gbdt.astuple(),
             table_ids=snapshot.table_ids, band_keys=lsh.keys,
             coarse_keys=lsh.coarse,
-            profile_dtype=dt, events=self.events, n_padded=n_pad,
+            profile_dtype=dt, n_padded=n_pad,
             device=self.device, mesh=self.mesh)
         return _VersionState(snapshot=snapshot, z=z, w=w, lsh=lsh,
                              executor=executor, mean=mean, std=std,
@@ -745,10 +763,9 @@ class DiscoveryEngine:
         compile_ms = None
         if todo:
             step("plan")
-            scores, ids, ncand, plan = self._rank_rows(
+            scores, ids, ncand, plan, compile_ms = self._rank_rows(
                 zq[todo], wq[todo], sigq[todo], tq[todo], qid[todo], st,
                 step=step, trace=rec)
-            compile_ms = st.executor.last_compile_ms()
             # the plan's cost was modeled for the PADDED batch — normalize
             # by that count, not len(todo), or a lone miss looks batch_pad×
             # costlier than the same query served in a full batch
@@ -872,22 +889,23 @@ class DiscoveryEngine:
     # -- internals ----------------------------------------------------------
 
     def _pad_target(self, n_queries: int) -> int:
-        """Padded size of an ``n_queries`` micro-batch: the bucket ladder
-        when one is configured (scheduler-installed or explicit), else
-        the next ``batch_pad`` multiple — the legacy padding."""
-        if self.planner.config.batch_buckets:
+        """Padded size of an ``n_queries`` micro-batch: the installed bucket
+        ladder, else the next ``batch_pad`` multiple."""
+        if self.batch_buckets:
             return self.planner.snap_batch(n_queries)
         bp = max(self.config.batch_pad, 1)
         return -(-max(int(n_queries), 1) // bp) * bp
 
     def _rank_rows(self, zq, wq, sigq, tq, qid,
                    st: _VersionState | None = None, step=None, trace=None):
-        """Plan + execute one padded micro-batch through ``repro_torch.exec``.
+        """Plan + execute one padded micro-batch through ``repro_torch.exec``:
+        ``(scores, ids, n_scored, plan, compile_ms)``, ``compile_ms`` the
+        wall of a shape's first contact, else None.
 
         ``step(name)`` (optional) opens each contiguous phase after the
         caller's ``plan`` — candidates / execute / finalize — of its span
         tree; ``trace`` is the batch's record, which the executor's stages
-        go into."""
+        go into. Publishes the compile and tier events."""
         step = step or (lambda name: None)
         st = st if st is not None else self._head
         (zq, wq, sigq, tq, qid), q = pad_rows(
@@ -908,15 +926,32 @@ class DiscoveryEngine:
         qcoarse = (st.lsh.coarse_query_keys(sigq)
                    if plan.candidates == "tiered" else None)
         step("execute")
+        ex, ev = st.executor, self.events
+        first = ex.first_contact(plan, pad)
+        shape = dict(plan=plan.kind, grid=list(plan.grid), n_queries=pad, k=plan.k)
+        if first and ev is not None:
+            ev.publish(EV.COMPILE_BEGIN, **shape)
+        t0 = time.perf_counter()
         with tracing.active(trace):
-            sc, ids, ncand = st.executor.execute(plan, zq, wq, tq, qid,
-                                                 qkeys=qkeys, qcoarse=qcoarse)
+            res = ex.execute(plan, zq, wq, tq, qid, qkeys=qkeys, qcoarse=qcoarse)
+        compile_ms = (time.perf_counter() - t0) * 1e3 if first else None
+        sc, ids, ncand = res
+        if first and ev is not None:
+            ev.publish(EV.COMPILE_END, **shape, ms=compile_ms)
+        if ev is not None and res.tier is not None:
+            n_hits, n_surv = res.tier
+            ev.publish(EV.COARSE_PASS, n_queries=pad, n_columns=ex.n_live,
+                       survivor_budget=plan.survivor_budget, hits_mean=float(n_hits.mean()),
+                       survivors_mean=float(n_surv.mean()), survivors_max=int(n_surv.max()),
+                       survivor_fraction=float(n_surv.mean()) / max(ex.n_live, 1))
+            ev.publish(EV.FINE_PROBE, n_queries=pad, budget=plan.budget,
+                       survivor_budget=plan.survivor_budget, scored_mean=float(ncand.mean()))
         step("finalize")
         self.last_plan = plan
         with self._slock:
             self._plan_counts[plan.kind] = \
                 self._plan_counts.get(plan.kind, 0) + q
-        return sc[:q], ids[:q], ncand[:q], plan
+        return sc[:q], ids[:q], ncand[:q], plan, compile_ms
 
     def _resolve(self, requests, st: _VersionState | None = None):
         """Requests -> stacked (zq, wq, sigq, tq, qid) numpy rows."""
@@ -1116,8 +1151,8 @@ def measure_recall(engine: DiscoveryEngine, query_ids: np.ndarray,
     st = engine._pin()                  # both sides see one version
     try:
         zq, wq, sigq, tq, qid = engine._resolve(reqs, st)
-        got_s, got_ids, ncand, plan = engine._rank_rows(zq, wq, sigq, tq,
-                                                        qid, st)
+        got_s, got_ids, ncand, plan, _ = engine._rank_rows(zq, wq, sigq, tq,
+                                                           qid, st)
         # plan the baseline at the padded size the served plan's grid was
         # chosen against, so its q_shards stay admissible
         pad = engine._pad_target(len(reqs))

@@ -24,16 +24,18 @@ Event taxonomy (the ``type`` strings components publish):
 ``request_expired``         deadline passed while queued (waited_ms)
 ``batch_formed``            worker staged a micro-batch (n, trace_ids)
 ``cache_hit`` / ``cache_miss``  engine result-cache outcome per batch
-``compile_begin`` / ``compile_end``  executor first contact with a
-                            (plan kind, grid, batch shape) — the jit spike
+``compile_begin`` / ``compile_end``  engine: the executor's first contact
+                            with a (plan kind, grid, batch shape), or a
+                            warmup unit it ran
 ``snapshot_pinned``         a query batch pinned an MVCC version
 ``snapshot_retired``        last reference released; executor closed
 ``compaction_started`` / ``compaction_published``  background compactor
 ``manifest_advanced``       catalog manifest chain grew a version
-``coarse_pass``             tiered candidate stage: super-band digest swept
-                            the lake (survivor counts + fraction)
-``fine_probe``              tiered candidate stage: banded probe + scoring
-                            ran on the gathered survivors
+``coarse_pass``             engine, from a tiered run's counts: the
+                            super-band digest swept the lake (survivor
+                            counts + fraction)
+``fine_probe``              engine, from a tiered run: banded probe +
+                            scoring ran on the gathered survivors
 ``warmup_begin``            engine AOT warmup started (scope, buckets,
                             n_plans)
 ``warmup_end``              warmup finished (executables, hits/misses,

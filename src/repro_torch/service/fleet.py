@@ -451,8 +451,8 @@ class FleetConfig:
     # manifest advance never pauses the fleet).  0 disables the
     # background thread (tests call roll_refresh() by hand)
     refresh_interval_s: float = 0.0
-    # scheduler-compat: ladder the scheduler reads/installs (None adopts
-    # the first engine's configured ladder)
+    # padded-batch ladder installed on every replica at construction
+    # (None keeps each engine's own)
     batch_buckets: tuple | None = None
     # injectable time source shared by heartbeats and queue_ms stamping —
     # MUST tick the same epoch as the scheduler's clock
@@ -474,8 +474,6 @@ class EngineFleet:
         if not engines:
             raise ValueError("a fleet needs at least one engine")
         self.config = config or FleetConfig()
-        if self.config.batch_buckets is None:
-            self.config.batch_buckets = engines[0].config.batch_buckets
         if self.config.max_redispatch is None:
             self.config.max_redispatch = len(engines)
         self._clock = self.config.clock
@@ -499,6 +497,8 @@ class EngineFleet:
             EngineReplica(i, eng, fleet=self, clock=self._clock,
                           injector=injector)
             for i, eng in enumerate(engines)]
+        if self.config.batch_buckets is not None:
+            self.install_buckets(self.config.batch_buckets)
         for r in self.replicas:
             r.start()
         self._stop = threading.Event()
@@ -546,7 +546,7 @@ class EngineFleet:
         bus = metrics = None
         if engine_config.metrics:
             from repro_torch.service.metrics import ServiceMetrics
-            bus = EV.EventBus(capacity=engine_config.event_capacity)
+            bus = EV.EventBus()
             metrics = ServiceMetrics(bus)
         engines = []
         for i in range(n_replicas):
@@ -569,14 +569,16 @@ class EngineFleet:
 
     # -- scheduler-compat engine surface ------------------------------------
 
+    @property
+    def batch_buckets(self) -> tuple:
+        """The padded-batch ladder installed on the replicas."""
+        return self.replicas[0].engine.batch_buckets
+
     def install_buckets(self, buckets: tuple) -> None:
-        """Propagate the scheduler's bucket ladder to every replica (the
-        single-engine path assigns ``engine.config.batch_buckets``; the
-        fleet must fan it out so all planners pad identically)."""
-        self.config.batch_buckets = tuple(buckets)
+        """Install a padded-batch ladder on every replica, so all planners
+        pad identically."""
         for r in self.replicas:
-            r.engine.config.batch_buckets = tuple(buckets)
-            r.engine.planner.config.batch_buckets = tuple(buckets)
+            r.engine.install_buckets(buckets)
 
     def attach_scheduler(self, scheduler) -> None:
         self._scheduler = scheduler

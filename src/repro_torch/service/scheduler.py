@@ -20,9 +20,14 @@ module replaces it with an asynchronous scheduler:
   the engine pads each batch up to the smallest bucket that fits, so
   only a handful of compiled executables — and the planner grid choices
   measured for exactly those sizes — ever exist, instead of one per odd
-  batch size.  The ladder is installed on the engine's planner at
-  scheduler construction (``launch.costmodel.derive_batch_buckets`` can
-  derive it from a measured ``BENCH_service.json`` batch sweep);
+  batch size.  The scheduler installs its ladder at construction through
+  ``engine.install_buckets``, the one writer of it; without a ladder of
+  its own it takes the engine's (``engine.batch_buckets``), else
+  ``exec.plan.DEFAULT_BATCH_BUCKETS``
+  (``launch.costmodel.derive_batch_buckets`` can derive one from a
+  measured ``BENCH_service.json`` batch sweep);
+* **warm-gated dispatch**: no batch is dispatched while the engine's
+  warmup runs (``warm_event`` cleared); admission and deadlines go on;
 * **deadline-aware admission**: a request submitted with ``deadline_ms=``
   is dropped at batch-formation time once its deadline has passed (its
   future raises :class:`DeadlineExpired`) — a queue that fell behind
@@ -86,14 +91,9 @@ class SchedulerConfig:
     max_wait_ms: float = 2.0      # batch-formation coalescing window
     # cap on the number of requests per formed batch; None = top bucket
     max_batch: int | None = None
-    # padded-batch bucket ladder; None = the engine's configured ladder,
+    # padded-batch bucket ladder; None = the engine's installed ladder,
     # falling back to exec.plan.DEFAULT_BATCH_BUCKETS
     batch_buckets: tuple | None = None
-    # hold batch dispatch while the engine's AOT warmup is running
-    # (engine.warm_event cleared): admission keeps accepting, deadlines
-    # keep counting, but no batch pays a first-contact compile mid-warmup.
-    # False dispatches through a running warmup (legacy behaviour)
-    wait_for_warm: bool = True
     # injectable time source (monotonic seconds): tests swap in a fake
     # clock (tests/_fixtures.FakeClock) to drive deadline expiry without
     # real sleeps.  The coalescing wait derives its timeout from this
@@ -164,26 +164,16 @@ class RequestScheduler:
         self.config = config or SchedulerConfig()
         self._clock = self.config.clock
         ladder = (self.config.batch_buckets
-                  or engine.config.batch_buckets
+                  or engine.batch_buckets
                   or DEFAULT_BATCH_BUCKETS)
         self.buckets = tuple(sorted(int(b) for b in ladder))
         self._bucket_set = frozenset(self.buckets)
         if self.buckets[0] < 1:
             raise ValueError(f"batch buckets must be >= 1; got {ladder!r}")
-        # install the ladder on the engine so ITS padding (and therefore
-        # the planner's per-bucket grid choice + compile cache) snaps to
-        # the same sizes the scheduler forms.  Deliberately persistent:
-        # direct query_batch callers keep snapping to the same shapes
-        # after this scheduler closes (padding up is result-transparent —
-        # padded rows are sliced off — and shape reuse is the point).
-        # A fleet front end (`service.fleet.EngineFleet`) exposes
-        # install_buckets to propagate the ladder to every replica
-        install = getattr(engine, "install_buckets", None)
-        if install is not None:
-            install(self.buckets)
-        else:
-            engine.config.batch_buckets = self.buckets
-            engine.planner.config.batch_buckets = self.buckets
+        # the engine's padding (and so the planner's per-bucket grid choice
+        # and warm units) snaps to the sizes the scheduler forms; a fleet
+        # installs the ladder on every replica
+        engine.install_buckets(self.buckets)
         # formed-batch sink: an engine-compatible fleet exposes
         # dispatch_batch — the worker hands the staged batch to the
         # router instead of running it inline, and replica workers
@@ -322,8 +312,6 @@ class RequestScheduler:
         set, so a never-warmed engine is never held).  Polled so a
         ``close()`` during warmup still shuts the worker down promptly.
         The hold is a ``wait`` span of ``rec``."""
-        if not self.config.wait_for_warm:
-            return
         ev = getattr(self.engine, "warm_event", None)
         if ev is None or ev.is_set():
             return

@@ -290,6 +290,62 @@ class TestTracing:
         r = eng.query_batch(reqs)[0]
         assert all("compile_ms" not in s for s in r.trace)
 
+    def test_tiered_event_stream(self, tmp_path):
+        # the whole stream of a tiered engine through first contact, the
+        # serve warmup and a warmed batch: its order, and the tier events'
+        # payloads against the batch's counters and responses
+        cat = CatalogStore(str(tmp_path), n_perm=64)
+        for t in range(8):
+            cat.add_table(f"t{t}",
+                          [(f"c{t}a", [f"v{t}_{i}" for i in range(60)]),
+                           (f"c{t}b", [f"w{i % 11}" for i in range(40)])])
+        eng = DiscoveryEngine(cat.snapshot(), _tiny_model(),
+                              EngineConfig(k=3, mode="tiered", metrics=True,
+                                           cache_entries=0), device="cpu")
+        tail = eng.events.subscribe("tiered")
+
+        def counters():
+            c = eng.stats()["trace"]["counters"]
+            return c.get("digest_hits", 0), c.get("survivors", 0)
+
+        def batch(first):
+            before = counters()
+            rs = eng.query_batch([DiscoveryRequest(name=f"q{first + i}",
+                                                   column_id=first + i)
+                                  for i in range(8)])   # a rung: no padding
+            after = counters()
+            return rs, (after[0] - before[0], after[1] - before[1])
+
+        r1, grew1 = batch(0)
+        eng.warmup("serve")
+        r3, grew3 = batch(8)
+        evs = tail.poll()
+        unit = ["compile_begin", "executable_cache_miss", "compile_end"]
+        assert [e.type for e in evs] == [
+            "snapshot_pinned", "compile_begin", "compile_end", "coarse_pass",
+            "fine_probe", "cache_miss",
+            "snapshot_pinned", "warmup_begin",
+            *unit, *unit, *unit, *unit, *unit, *unit,
+            *unit, *unit, *unit, *unit, *unit, *unit,
+            "warmup_end",
+            "snapshot_pinned", "coarse_pass", "fine_probe", "cache_miss"]
+        coarse = [e.payload for e in evs if e.type == EV.COARSE_PASS]
+        fine = [e.payload for e in evs if e.type == EV.FINE_PROBE]
+        for c, f, grew, rs in ((coarse[0], fine[0], grew1, r1),
+                               (coarse[1], fine[1], grew3, r3)):
+            assert c["n_queries"] == f["n_queries"] == 8
+            assert c["hits_mean"] * c["n_queries"] == grew[0]
+            assert c["survivors_mean"] * c["n_queries"] == grew[1]
+            assert c["survivor_fraction"] == c["survivors_mean"] / c["n_columns"]
+            assert f["scored_mean"] == sum(r.n_candidates for r in rs) / len(rs)
+        for rs, compiled in ((r1, True), (r3, False)):
+            for r in rs:
+                ex = [s for s in r.trace if s["phase"] == "execute"]
+                assert len(ex) == 1
+                assert ("compile_ms" in ex[0]) == compiled
+                assert all("compile_ms" not in s for s in r.trace
+                           if s["phase"] != "execute")
+
     def test_snapshot_lifecycle_events(self, snapshot):
         eng = _engine(snapshot)
         tail = eng.events.subscribe("mvcc")

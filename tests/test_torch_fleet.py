@@ -28,6 +28,7 @@ from repro.service import FleetConfig as JFleetConfig
 from repro.service import FleetRouter as JFleetRouter
 from repro.service import ReplicaSnapshot as JReplicaSnapshot
 from repro.service import RequestScheduler as JRequestScheduler
+from repro.service import SchedulerConfig as JSchedulerConfig
 from repro.service import add_lake as jadd_lake
 from repro_torch.core import lakegen
 from repro_torch.core.gbdt import GBDTConfig
@@ -198,8 +199,9 @@ def test_install_buckets_propagates_to_every_replica(snapshot):
         with RequestScheduler(fleet,
                               SchedulerConfig(max_wait_ms=0.0,
                                               batch_buckets=(4, 8))):
+            assert fleet.batch_buckets == (4, 8)
             for r in fleet.replicas:
-                assert r.engine.config.batch_buckets == (4, 8)
+                assert r.engine.batch_buckets == (4, 8)
                 assert r.engine.planner.config.batch_buckets == (4, 8)
     finally:
         fleet.close()
@@ -482,8 +484,10 @@ def fleet_models():
 def _serve_fleet(fleet, requests):
     with fleet:
         fleet.warm_event.wait(timeout=120)
-        with (RequestScheduler if isinstance(fleet, EngineFleet) else JRequestScheduler)(
-                fleet, SchedulerConfig(max_wait_ms=2.0)) as sch:
+        scheduler, config = ((RequestScheduler, SchedulerConfig)
+                             if isinstance(fleet, EngineFleet)
+                             else (JRequestScheduler, JSchedulerConfig))
+        with scheduler(fleet, config(max_wait_ms=2.0)) as sch:
             futures = [sch.submit(r) for r in requests]
             out = [f.result(timeout=120) for f in futures]
         assert fleet.stats()["completed"] == len(requests)

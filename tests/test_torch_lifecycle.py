@@ -82,8 +82,8 @@ def _executor(c, n=None, **kw):
 
 
 def _run(ex, plan, batch):
-    sc, ids, n = ex.execute(plan, *batch)
-    return sc, ids, n, ex.last_tier_stats()
+    res = ex.execute(plan, *batch)
+    return (*res, res.tier)
 
 
 def _assert_equal_runs(a, b):

@@ -287,15 +287,16 @@ def test_executor_scale_path_matches_jax(scaled, jax_model, dtype, kind):
     jx = jexec.Executor(s["z"], s["w"], jax_model.gbdt.astuple(), **common)
     tx = Executor(s["z"], s["w"], jax_model.gbdt.astuple(), device="cpu", **common)
     js, ji, jn = jx.execute(jplan, *s["query"])
-    ts, ti, tn = tx.execute(tplan, *s["query"])
+    res = tx.execute(tplan, *s["query"])
+    (ts, ti, tn), tier = res, res.tier
     assert ti.dtype == np.int32 and tn.dtype == np.int32
     assert np.array_equal(tn, jn)
     if kind == "tiered":
-        for got, want in zip(tx.last_tier_stats(), jx._tls.tier_stats):
+        for got, want in zip(tier, jx._tls.tier_stats):
             assert np.array_equal(got, np.asarray(want))
         assert (tn < n).all()                        # the tier really pruned
     else:
-        assert tx.last_tier_stats() is None
+        assert tier is None
     _assert_same_ranking(js, ji, ts, ti)
 
 

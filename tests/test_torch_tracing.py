@@ -197,12 +197,21 @@ def test_counters_on_a_tiered_lake(snapshot, model):
     eng = _engine(snapshot, model, mode="tiered", profile_dtype="int8", cache_entries=cap,
                   batch_pad=8)
     ex = eng._head.executor
+    tiers = []                               # each batch's tier counts
+    execute = ex.execute
+
+    def recording_execute(*args, **kw):
+        res = execute(*args, **kw)
+        tiers.append(res.tier)
+        return res
+
+    ex.execute = recording_execute
     hits = surv = rerank = walked = 0
     occupancy = 0
     for b in range(3):                       # 3 batches of 6 distinct misses
         ids = np.arange(b * 6, b * 6 + 6) * 37 % N_COLUMNS
         eng.query_batch(_requests(ids, f"b{b}q"))
-        n_hits, n_surv = ex.last_tier_stats()
+        n_hits, n_surv = tiers[-1]
         hits += int(n_hits.sum())
         surv += int(n_surv.sum())
         plan = eng.last_plan

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import heapq
 import threading
 import time
 from collections import OrderedDict
@@ -205,6 +206,12 @@ class DiscoveryEngine:
         self.install_buckets(config.batch_buckets or ())
         self._cache: OrderedDict[bytes, tuple[list[ColumnMatch], float]] = \
             OrderedDict()
+        # the admission victim's index, beside the cache and under its lock:
+        # each resident cost's keys in recency order, and a min-heap of the
+        # costs that have a bucket (a cost whose bucket emptied is popped
+        # when it reaches the top)
+        self._cost_keys: dict[float, OrderedDict[bytes, None]] = {}
+        self._cost_heap: list[float] = []
         self._cache_lock = threading.Lock()
         self._counters = {"queries": 0, "batches": 0, "cache_hits": 0,
                           "cache_misses": 0, "cache_admitted": 0,
@@ -292,6 +299,8 @@ class DiscoveryEngine:
             self._live.add(st)
             with self._cache_lock:
                 self._cache.clear()
+                self._cost_keys.clear()
+                self._cost_heap.clear()
             self._counters["refreshes"] += 1
         if old is not None:
             self._release(old)
@@ -775,10 +784,8 @@ class DiscoveryEngine:
                 matches = [self._matches(scores[row], ids[row], st)
                            for row in range(len(todo))]
             with rec.span("cache"):      # admitted in row order
-                walked = 0
-                for row, i in enumerate(todo):
-                    walked += self._cache_put(keys[i], matches[row], cost_per_query)
-                rec.count("cache_walked", walked)
+                rec.count("cache_walked", self._cache_admit(
+                    [keys[i] for i in todo], matches, cost_per_query))
             with rec.span("respond"):
                 for row, i in enumerate(todo):
                     responses[i] = DiscoveryResponse(
@@ -854,6 +861,7 @@ class DiscoveryEngine:
             with self._cache_lock:     # admission counters live under it
                 c = dict(self._counters)
                 cache_size = len(self._cache)
+                cost_levels = len(self._cost_keys)
         out = {
             "queries": c["queries"], "batches": c["batches"],
             "scored_columns": c["scored_columns"],
@@ -864,6 +872,7 @@ class DiscoveryEngine:
                 "evicted": c["cache_evicted"],
                 "size": cache_size,
                 "capacity": self.config.cache_entries,
+                "cost_levels": cost_levels,
             },
             "plans": plans,
             "n_columns": n_columns,
@@ -1077,37 +1086,63 @@ class DiscoveryEngine:
             if hit is None:
                 return None
             self._cache.move_to_end(key)
+            self._cost_keys[hit[1]].move_to_end(key)
             return hit[0]
 
-    def _cache_put(self, key, matches, cost: float) -> int:
-        """Cost-aware admission: when full, the cheapest (oldest on ties)
-        resident entry is the victim — and a new entry cheaper than every
-        resident one is not admitted at all (cheap plans are cheap to
-        recompute; a full-scan result outranks any pruned one). Returns the
-        entries the victim search walked."""
+    def _cache_admit(self, keys, matches, cost: float) -> int:
+        """Cost-aware admission of ``keys[i] -> matches[i]``, in order, each
+        at ``cost``: when full, the cheapest (oldest on ties) resident entry
+        is the victim — and a new entry cheaper than every resident one is
+        not admitted at all (cheap plans are cheap to recompute; a full-scan
+        result outranks any pruned one). The victim is the first key of the
+        cheapest cost's bucket, so no other entry is looked at. Returns the
+        entries the victim search inspected: 1 for each admission into a
+        full cache."""
         cap = self.config.cache_entries
         if cap <= 0:
             return 0
+        cache, buckets, heap = self._cache, self._cost_keys, self._cost_heap
+        admitted = evicted = rejected = walked = 0
         with self._cache_lock:
-            if key in self._cache:
-                self._cache[key] = (matches, cost)
-                self._cache.move_to_end(key)
-                return 0
-            walked = 0
-            if len(self._cache) >= cap:
-                victim, vcost = None, np.inf
-                walked = len(self._cache)
-                for k_, (_, c_) in self._cache.items():  # oldest-first:
-                    if c_ < vcost:                       # ties go oldest
-                        victim, vcost = k_, c_
-                if cost < vcost:
-                    self._counters["cache_rejected"] += 1
-                    return walked
-                del self._cache[victim]
-                self._counters["cache_evicted"] += 1
-            self._cache[key] = (matches, cost)
-            self._counters["cache_admitted"] += 1
-            return walked
+            for key, m in zip(keys, matches):
+                old = cache.get(key)
+                if old is not None:                  # resident: re-put, most recent
+                    cache[key] = (m, cost)
+                    cache.move_to_end(key)
+                    if old[1] == cost:
+                        buckets[cost].move_to_end(key)
+                        continue
+                    bucket = buckets[old[1]]
+                    del bucket[key]
+                    if not bucket:
+                        del buckets[old[1]]
+                else:
+                    if len(cache) >= cap:
+                        walked += 1
+                        while heap[0] not in buckets:    # a cost whose bucket emptied
+                            heapq.heappop(heap)
+                        vcost = heap[0]
+                        if cost < vcost:
+                            rejected += 1
+                            continue
+                        bucket = buckets[vcost]
+                        del cache[bucket.popitem(last=False)[0]]
+                        if not bucket:
+                            del buckets[vcost]
+                        evicted += 1
+                    cache[key] = (m, cost)
+                    admitted += 1
+                bucket = buckets.get(cost)
+                if bucket is None:
+                    bucket = buckets[cost] = OrderedDict()
+                    heapq.heappush(heap, cost)
+                    if len(heap) > 2 * len(buckets) + 16:
+                        heap[:] = sorted(buckets)    # drop the stale costs
+                bucket[key] = None
+            self._counters["cache_admitted"] += admitted
+            self._counters["cache_evicted"] += evicted
+            self._counters["cache_rejected"] += rejected
+        return walked
 
 
 def _stats_drift(st: _VersionState) -> float:

@@ -513,17 +513,98 @@ def test_engine_stats_expose_plan_and_cache(catalog_dir, models):
 
 def test_engine_cache_cost_aware_admission(catalog_dir, models):
     engine = _engine(catalog_dir, models[0], cache_entries=2)
-    engine._cache_put(b"full-scan", ["A"], 100.0)
-    engine._cache_put(b"pruned", ["B"], 40.0)
-    engine._cache_put(b"cheap", ["C"], 10.0)
+    engine._cache_admit([b"full-scan"], [["A"]], 100.0)
+    engine._cache_admit([b"pruned"], [["B"]], 40.0)
+    engine._cache_admit([b"cheap"], [["C"]], 10.0)
     assert b"cheap" not in engine._cache
     assert engine.stats()["cache"]["rejected"] == 1
-    engine._cache_put(b"mid", ["D"], 60.0)
+    engine._cache_admit([b"mid"], [["D"]], 60.0)
     assert set(engine._cache) == {b"full-scan", b"mid"}
     assert engine.stats()["cache"]["evicted"] == 1
     off = _engine(catalog_dir, models[0], cache_entries=0)
     assert not off.query(DiscoveryRequest(column_id=3)).cached
     assert not off.query(DiscoveryRequest(column_id=3)).cached
+
+
+_ADMISSION_COSTS = (0.0, 1.0, 1.0, 2.5, 4.0)      # drawn with ties, 0.0 among them
+
+
+def _admission_trace(seed, cap, n_steps=300):
+    """A seeded trace of cache calls: ("put", key, cost), ("admit", keys,
+    cost) (a batch's admissions at one cost, in order) and ("get", key).
+    Puts re-put keys at their cost and at a new one, and admit new
+    keys; gets ask for keys put before and for keys never put."""
+    rng = np.random.default_rng(seed)
+    pool = [b"k%d" % i for i in range(2 * cap + 3)]
+    seen: dict[bytes, float] = {}                 # the keys put so far, at their last cost
+    trace = []
+    for _ in range(n_steps):
+        r = rng.random()
+        if r < 0.15:
+            keys = [pool[j] for j in rng.integers(len(pool), size=rng.integers(1, 7))]
+            cost = float(_ADMISSION_COSTS[rng.integers(len(_ADMISSION_COSTS))])
+            seen.update(dict.fromkeys(keys, cost))
+            trace.append(("admit", keys, cost))
+        elif r < 0.6 or not seen:
+            key = pool[rng.integers(len(pool))]
+            if key in seen and rng.random() < 0.5:
+                cost = seen[key]               # the same cost again
+            else:
+                cost = float(_ADMISSION_COSTS[rng.integers(len(_ADMISSION_COSTS))])
+            seen[key] = cost
+            trace.append(("put", key, cost))
+        elif r < 0.8:
+            trace.append(("get", list(seen)[rng.integers(len(seen))]))
+        else:
+            trace.append(("get", pool[rng.integers(len(pool))] + b"?"))
+    return trace
+
+
+_ADMISSION_COUNTERS = ("cache_admitted", "cache_rejected", "cache_evicted")
+
+
+@pytest.mark.parametrize("cap", [1, 2, 8, 64])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cache_admission_matches_jax(catalog_dir, models, seed, cap):
+    """The port's indexed admission against the JAX engine's walk
+    (src/repro/service/engine.py:983-1015), one entry or a batch's entries
+    at a time, on one seeded trace: the same entries in the same order, the
+    same hits and the same counters after every step, one victim inspected
+    an admission into a full cache, one cost level a resident cost; and
+    after refresh, re-admitting a formerly resident key evicts nothing."""
+    model, jmodel = models
+    want = JDiscoveryEngine(JCatalogReader(catalog_dir).snapshot(), jmodel,
+                            JEngineConfig(cache_entries=cap))
+    got = _engine(catalog_dir, model, cache_entries=cap)
+    for step, call in enumerate(_admission_trace(seed, cap)):
+        if call[0] == "put":
+            _, key, cost = call
+            full = key not in got._cache and len(got._cache) >= cap
+            want._cache_put(key, [step], cost)
+            assert got._cache_admit([key], [[step]], cost) == int(full)
+        elif call[0] == "admit":
+            _, keys, cost = call
+            full = 0
+            for key in keys:
+                full += key not in want._cache and len(want._cache) >= cap
+                want._cache_put(key, [step, key], cost)
+            assert got._cache_admit(keys, [[step, k] for k in keys], cost) == full
+        else:
+            assert got._cache_get(call[1]) == want._cache_get(call[1])
+        assert list(got._cache.items()) == list(want._cache.items()), (step, call)
+        for name in _ADMISSION_COUNTERS:
+            assert got._counters[name] == want._counters[name], (step, name)
+        assert got.stats()["cache"]["cost_levels"] == \
+            len({c for _, c in got._cache.values()})
+    assert got._counters["cache_evicted"] > 0
+    before = list(got._cache)
+    evicted = got._counters["cache_evicted"]
+    got.refresh(got.snapshot)
+    assert len(got._cache) == 0 and got.stats()["cache"]["cost_levels"] == 0
+    for key in before:
+        assert got._cache_admit([key], [["again"]], 1.0) == 0
+    assert list(got._cache) == before
+    assert got._counters["cache_evicted"] == evicted
 
 
 def test_engine_auto_mode_plans_by_cost(catalog_dir, models, tmp_path):

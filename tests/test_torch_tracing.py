@@ -216,13 +216,13 @@ def test_counters_on_a_tiered_lake(snapshot, model):
         surv += int(n_surv.sum())
         plan = eng.last_plan
         rerank += 8 * min(4 * plan.k, plan.budget)    # padded batch x over-fetch R
-        for _ in ids:                        # each miss walks a full cache
-            walked += occupancy if occupancy >= cap else 0
+        for _ in ids:                        # each miss into a full cache
+            walked += 1 if occupancy >= cap else 0   # inspects one victim
             occupancy = min(occupancy + 1, cap)
     c = eng.stats()["trace"]["counters"]
     assert c["digest_hits"] == hits > 0 and c["survivors"] == surv > 0
     assert c["rerank_rows"] == rerank == 3 * 8 * 40
-    assert c["cache_walked"] == walked == 10 * cap
+    assert c["cache_walked"] == walked == 10
     assert c["scored_columns"] == eng.stats()["scored_columns"]
     # the batch's uploads (queries, fine and coarse keys, re-rank rows) and
     # downloads (top-k, counts, tier stats, re-rank ids), in bytes
@@ -237,10 +237,41 @@ def test_cache_walk_counts_only_full_admissions(snapshot, model):
     eng = _engine(snapshot, model, mode="full", cache_entries=4, batch_pad=8)
     eng.query_batch(_requests([1, 2, 3]))
     assert eng.stats()["trace"]["counters"]["cache_walked"] == 0
-    eng.query_batch(_requests([4, 5, 6]))        # 1 fills the cache, 2 walk 4 each
-    assert eng.stats()["trace"]["counters"]["cache_walked"] == 8
+    eng.query_batch(_requests([4, 5, 6]))        # 1 fills the cache, 2 inspect a victim each
+    assert eng.stats()["trace"]["counters"]["cache_walked"] == 2
     eng.query_batch(_requests([4, 5, 6]))        # hits: nothing admitted
-    assert eng.stats()["trace"]["counters"]["cache_walked"] == 8
+    assert eng.stats()["trace"]["counters"]["cache_walked"] == 2
+
+
+def test_full_cache_admission_inspects_one_victim(snapshot, model):
+    """A full 1,024-entry cache at one cost: each of a batch's 256 misses
+    inspects one victim, and one cost level is resident; mixed costs keep
+    one level a resident cost."""
+    eng = _engine(snapshot, model, mode="full", cache_entries=1024)
+    eng.query_batch(_requests(range(256)))
+    cost = {c for _, c in eng._cache.values()}
+    assert len(cost) == 1
+    fill = [b"fill%d" % i for i in range(768)]   # the rest of the cache, at the plan's cost
+    assert eng._cache_admit(fill, [[]] * 768, *cost) == 0
+    assert eng.stats()["cache"]["size"] == 1024
+    eng.query_batch(_requests(range(256, 512)))  # 256 misses into the full cache
+    s = eng.stats()
+    assert s["trace"]["counters"]["cache_walked"] == 256
+    assert s["cache"]["evicted"] == 256 and s["cache"]["rejected"] == 0
+    assert s["cache"]["size"] == 1024 and s["cache"]["cost_levels"] == 1
+    # the victims were the oldest: the first batch's entries, not the fill
+    assert all(key in eng._cache for key in fill)
+
+    mixed = _engine(snapshot, model, mode="full", cache_entries=4)
+    levels = []
+    for key, c in ((b"a", 1.0), (b"b", 2.0), (b"c", 2.0), (b"d", 3.0),
+                   (b"e", 2.0), (b"f", 0.5), (b"g", 3.0), (b"c", 5.0),
+                   (b"h", 2.0), (b"i", 3.0)):
+        mixed._cache_admit([key], [[]], c)
+        levels.append(mixed.stats()["cache"]["cost_levels"])
+    # e evicts a, f is refused, g evicts b, c moves to 5.0, h evicts e, i evicts h
+    assert levels == [1, 2, 2, 3, 2, 2, 2, 3, 3, 2]
+    assert list(mixed._cache) == [b"d", b"g", b"c", b"i"]
 
 
 # ---------------------------------------------------------------------------

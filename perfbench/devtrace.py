@@ -1,11 +1,15 @@
-"""What the device did in a traced window, from ``torch.profiler``.
+"""What the devices did in a traced window, from ``torch.profiler``.
 
-``busy_s`` is the union of the device's activity intervals (kernels, copies,
-sets); ``device_ops`` the operations that took most device time; and
-``idle_gaps`` the device's idle time between activities, summed by the
-device operation that ended each gap: the host was preparing that launch
-(the profiler records host operations only on the thread that started it,
-and the program's work runs on the scheduler's thread).
+``busy_s`` is the union of each card's activity intervals (kernels, copies,
+sets), summed over the cards, in device-seconds, and ``window_s`` the window
+times the number of cards, so ``1 - busy_s / window_s`` is the idle share on
+one card or on four; ``per_card`` holds each card's union by its device
+index. ``device_ops`` are the operations that took most device time, summed
+over the cards; and ``idle_gaps`` each card's idle time between activities,
+summed by the device operation that ended each gap: the host was preparing
+that launch (the profiler records host operations only on the thread that
+started it, and the program's work runs on the scheduler's thread, or with a
+fleet on the replicas' threads).
 """
 from __future__ import annotations
 
@@ -46,15 +50,28 @@ def short(name: str) -> str:
     return n.strip()[:160]
 
 
-def summarize(prof, window_s: float, top: int = 10) -> dict:
-    """Stop ``prof`` and read it: ``busy_s``, ``window_s`` and the two
-    lists of the breakdown."""
+def summarize(prof, window_s: float, top: int = 10, n_cards: int = 1) -> dict:
+    """Stop ``prof`` and read it over ``n_cards`` cards: ``busy_s``,
+    ``window_s``, ``per_card`` and the two lists of the breakdown."""
     prof.__exit__(None, None, None)
-    dev = sorted(_span_ns(e) + (short(e.name()),)
-                 for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == DeviceType.CUDA)
+    by_card: dict[int, list] = defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_card[int(e.device_index())].append(_span_ns(e) + (short(e.name()),))
     by_op: dict[str, float] = defaultdict(float)
     gaps: dict[str, float] = defaultdict(float)
+    per_card = {card: _card_busy(sorted(evs), by_op, gaps)
+                for card, evs in sorted(by_card.items())}
+    rank = lambda d: [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:top]]
+    return {"busy_s": sum(per_card.values(), 0.0), "window_s": window_s * n_cards,
+            "per_card": per_card, "device_ops": rank(by_op), "idle_gaps": rank(gaps),
+            "n_device_events": sum(len(evs) for evs in by_card.values())}
+
+
+def _card_busy(dev: list, by_op: dict, gaps: dict) -> float:
+    """The union of one card's sorted ``(start_ns, end_ns, name)``
+    activities in seconds; adds each activity's seconds to ``by_op`` and
+    each idle gap to ``gaps`` under the operation that ended it."""
     busy = 0.0
     cur_s = cur_t = None
     for s, t, name in dev:
@@ -69,6 +86,4 @@ def summarize(prof, window_s: float, top: int = 10) -> dict:
             cur_t = max(cur_t, t)
     if cur_t is not None:
         busy += (cur_t - cur_s) * 1e-9
-    rank = lambda d: [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:top]]
-    return {"busy_s": busy, "window_s": window_s, "device_ops": rank(by_op),
-            "idle_gaps": rank(gaps), "n_device_events": len(dev)}
+    return busy

@@ -19,7 +19,10 @@ Set-up draws the lake on the card from the seed, ingests it through the
 port's ``service.catalog.profile_and_sign`` into an in-memory
 ``CatalogSnapshot``, opens ``DiscoveryEngine(snapshot, model, cfg)`` behind a
 ``RequestScheduler`` with its default settings and warms the engine for the
-scheduler's bucket ladder. The window then drives
+scheduler's bucket ladder. A configuration with ``"placement": {"replicas":
+N}`` is served instead by an ``EngineFleet`` of N such engines, one a card
+over the cell's ``chips`` cards (``cuda:0`` ... ``cuda:N-1``), each over the
+same snapshot, behind the one scheduler. The window then drives
 ``RequestScheduler.submit``. After it closes, the program's state is freed
 and the plain reference (:mod:`perfbench.reference`) answers a sample of
 the window's requests drawn from the seed.
@@ -134,7 +137,11 @@ class Names:
 
 
 class Run:
-    """What the metric readers and the check read."""
+    """What the metric readers and the check read. With a placement,
+    ``engine_before``/``engine_after`` are the replicas' ``stats()`` merged
+    (:func:`merged_stats`), and ``fleet_before``/``fleet_after`` the fleet's
+    ``stats()`` (the router's counters, each replica's ``batches_served``);
+    None without one."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -172,8 +179,29 @@ def engine_config(config: dict):
     return EngineConfig(lsh=LSHConfig(**lsh), **e)
 
 
+def placement_replicas(config: dict) -> int | None:
+    """The engines a fleet placement asks for, one a card; None without the
+    ``placement`` key (one engine, no fleet)."""
+    if "placement" not in config:
+        return None
+    place = config["placement"]
+    n = place.get("replicas") if isinstance(place, dict) else None
+    if (not isinstance(place, dict) or set(place) != {"replicas"} or not isinstance(n, int)
+            or isinstance(n, bool) or n < 1):
+        raise BenchError(f"placement {place!r}: want {{\"replicas\": N}} with a whole N >= 1")
+    return n
+
+
+def as_devices(device) -> list[torch.device]:
+    """One device, or a list of them, as a list."""
+    if isinstance(device, (str, torch.device)):
+        device = [device]
+    return [torch.device(d) for d in device]
+
+
 def setup(config: dict, seed: int, device, log) -> dict:
-    """Lake, snapshot, engine, scheduler, warmed: the program under test."""
+    """Lake, snapshot, engine (or, with a placement, a fleet of engines, one a
+    device of ``device``), scheduler, warmed: the program under test."""
     from perfbench import lakegen
     from repro_torch.core.ingest import ColumnBatch
     from repro_torch.core.predictor import JoinQualityModel
@@ -182,11 +210,16 @@ def setup(config: dict, seed: int, device, log) -> dict:
     from repro_torch.service.engine import DiscoveryEngine
     from repro_torch.service.scheduler import RequestScheduler, SchedulerConfig
 
+    devices = as_devices(device)
+    n_replicas = placement_replicas(config)
+    if len(devices) != (n_replicas or 1):
+        raise BenchError(f"{len(devices)} device(s) for "
+                         f"{n_replicas or 1} engine(s): {[str(d) for d in devices]}")
     walls = {}
     t = time.perf_counter()
     shape = lakegen.LakeShape.from_dict(config["lake"])
-    # the columns are drawn on the card as ingest walks them
-    lake = lakegen.StreamedLake(shape, seed, device)
+    # the columns are drawn on the (first) card as ingest walks them
+    lake = lakegen.StreamedLake(shape, seed, devices[0])
     c = shape.n_columns
     table = (np.arange(c) // shape.cols_per_table).astype(np.int32)
     batch = ColumnBatch(values32=lake.values32, char_len=lake.char_len,
@@ -194,7 +227,7 @@ def setup(config: dict, seed: int, device, log) -> dict:
                         n_rows=np.full((c,), shape.row_budget, np.int32),
                         names=Names(c), table_ids=table)
     num, words, sigs = profile_and_sign(batch, config["n_perm"], config["minhash_seed"],
-                                        device=device)
+                                        device=devices[0])
     del batch, lake
     prof = lake_profiles(num, words, np.full((c,), shape.row_budget, np.int32))
     snap = CatalogSnapshot(profiles=prof, signatures=sigs, table_ids=table,
@@ -203,12 +236,21 @@ def setup(config: dict, seed: int, device, log) -> dict:
     walls["draw_and_ingest_s"] = time.perf_counter() - t
     t = time.perf_counter()
     model = JoinQualityModel.load(str(PB / config["model"]))
-    engine = DiscoveryEngine(snap, model, engine_config(config), device=device)
-    walls["engine_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    scheduler = RequestScheduler(engine, SchedulerConfig())
-    report = engine.warmup("serve")
-    _sync(device)
+    engines = []
+    for i, d in enumerate(devices):
+        engines.append(DiscoveryEngine(snap, model, engine_config(config), device=d))
+        walls[f"engine_s.{i}" if n_replicas else "engine_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+    fleet = None
+    if n_replicas:
+        from repro_torch.service.fleet import EngineFleet, FleetConfig
+        fleet = EngineFleet(engines, FleetConfig())
+    scheduler = RequestScheduler(fleet if fleet is not None else engines[0], SchedulerConfig())
+    # every engine warms the ladder the scheduler installed on it
+    reports = [e.warmup("serve") for e in engines]
+    if fleet is not None and not fleet.warm_event.wait(60.0):
+        raise BenchError(f"the fleet has no serving replica: {fleet.stats()['replicas']}")
+    _sync(devices)
     # the set-up heap (the imported modules, the warm engine) is frozen out
     # of the collector's walks, so the window's collections walk what the
     # window allocates: unfrozen, ~9 full collections of 100-150 ms fell in
@@ -217,13 +259,37 @@ def setup(config: dict, seed: int, device, log) -> dict:
     gc.freeze()
     walls["warmup_s"] = time.perf_counter() - t
     log(f"set-up walls (s): {json.dumps({k: round(v, 3) for k, v in walls.items()})}; "
-        f"warmup {report['n_executables']} units over buckets {report['buckets']}")
-    return {"engine": engine, "scheduler": scheduler, "shape": shape}
+        f"warmup {reports[0]['n_executables']} units over buckets {reports[0]['buckets']}"
+        + (f" on each of {len(engines)} replicas" if fleet is not None else ""))
+    return {"engine": engines[0], "engines": engines, "fleet": fleet, "scheduler": scheduler,
+            "shape": shape}
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+def _sync(devices) -> None:
+    for d in {d for d in as_devices(devices) if d.type == "cuda"}:
+        torch.cuda.synchronize(d)
+
+
+def merged_stats(stats: list[dict]) -> dict:
+    """The replicas' ``engine.stats()`` as one: the counters, ``plans``, the
+    ``cache`` counts and the ``trace`` totals summed (a span's ``max_ms``
+    the largest), the rest replica 0's. One engine's are its own."""
+    if len(stats) == 1:
+        return stats[0]
+    out = dict(stats[0])
+    for key in ("queries", "batches", "scored_columns", "plans", "cache", "trace"):
+        for s in stats[1:]:
+            out[key] = _summed(out[key], s[key])
+    return out
+
+
+def _summed(a, b, key: str = ""):
+    if isinstance(a, dict):
+        return {k: _summed(a[k], b[k], k) if k in a and k in b else a.get(k, b.get(k))
+                for k in {**a, **b}}
+    if isinstance(a, bool) or not isinstance(a, (int, float)):
+        return a
+    return max(a, b) if key.startswith("max") else a + b
 
 
 # ---------------------------------------------------------------------------
@@ -352,38 +418,50 @@ def passed(checks: dict) -> bool:
 def run_cell(cell: dict, config: dict, mix, seed: int, seconds: float,
              traced: bool, device, t_process: float, log=print, root: Path = ROOT) -> Run:
     """Set up, drive the window, read the trace; the program stays open on
-    the returned run until :meth:`Run.free_program`."""
+    the returned run until :meth:`Run.free_program`. ``device`` is one
+    device, or with a placement a list of them, one a replica."""
     from perfbench import devtrace, hoststat, traffic
 
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    prog = setup(config, seed, dev, log)
-    engine, scheduler = prog["engine"], prog["scheduler"]
+    devices = as_devices(device)
+    cards = list(dict.fromkeys(d for d in devices if d.type == "cuda"))
+    if cards:
+        torch.cuda.init()       # a card's memory statistics exist once CUDA is up
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(card)
+    prog = setup(config, seed, devices, log)
+    engines, fleet, scheduler = prog["engines"], prog["fleet"], prog["scheduler"]
     setup_s = time.perf_counter() - t_process
-    sched_before, engine_before = scheduler.stats(), engine.stats()
+    sched_before = scheduler.stats()
+    engine_before = merged_stats([e.stats() for e in engines])
+    fleet_before = fleet.stats() if fleet is not None else None
     prof = None
     if traced:
-        prof = devtrace.start(dev)
+        prof = devtrace.start(devices[0])
         gc.collect()            # what starting the profiler made, frozen as set-up's was
         gc.freeze()
     pauses = GcPauses()
     cpu0 = hoststat.sample()
     window = traffic.run(mix, scheduler, prog["shape"].n_columns, seed, seconds,
                          int(config["engine"]["k"]))
-    _sync(dev)
+    _sync(devices)
     thread_cpu_s = hoststat.delta(cpu0, hoststat.sample())
     pauses.close()
-    trace = devtrace.summarize(prof, window.t_end - window.t_start) if traced else None
-    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    trace = (devtrace.summarize(prof, window.t_end - window.t_start, n_cards=max(len(cards), 1))
+             if traced else None)
+    peaks = [int(torch.cuda.max_memory_allocated(d)) if d.type == "cuda" else 0
+             for d in devices]
 
     def free_program():
         scheduler.close()
-        engine.close()
+        if fleet is not None:
+            fleet.close()
+        for e in engines:
+            e.close()
         prog.clear()
         gc.collect()
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        for card in cards:
+            with torch.cuda.device(card):
+                torch.cuda.empty_cache()
 
     plan = load_plan(config, root)
     trees, depth = np.load(PB / config["model"])["feats"].shape
@@ -395,10 +473,14 @@ def run_cell(cell: dict, config: dict, mix, seed: int, seconds: float,
         return plan.bound_s(q, n, config, int(trees), int(depth))
 
     return Run(config=config, window=window, gc=pauses.summary(), thread_cpu_s=thread_cpu_s,
-               setup_s=setup_s, memory_peak_bytes=int(peak),
+               setup_s=setup_s, memory_peak_bytes=max(peaks), devices=devices,
+               card_peak_bytes=peaks,
                sched_before=sched_before, sched_after=scheduler.stats(),
-               engine_before=engine_before, engine_after=engine.stats(), trace=trace,
-               snap_batch=engine.planner.snap_batch, top_bucket=scheduler.buckets[-1],
+               engine_before=engine_before,
+               engine_after=merged_stats([e.stats() for e in engines]),
+               fleet_before=fleet_before,
+               fleet_after=fleet.stats() if fleet is not None else None, trace=trace,
+               snap_batch=engines[0].planner.snap_batch, top_bucket=scheduler.buckets[-1],
                plan_bound_s=plan_bound_s, free_program=free_program)
 
 
@@ -449,6 +531,11 @@ def describe(run: Run, log) -> None:
             "max_queue_depth": run.sched_after["max_queue_depth"],
             "cache_hits": run.engine_after["cache"]["hits"] - run.engine_before["cache"]["hits"],
             "gc": run.gc, "thread_cpu_s": run.thread_cpu_s,
+            **({"replica_batches": {r: v["batches_served"]
+                                    - run.fleet_before["replicas"][r]["batches_served"]
+                                    for r, v in run.fleet_after["replicas"].items()}}
+               if run.fleet_after is not None else {}),
+            **({"busy_s_per_card": run.trace["per_card"]} if run.trace is not None else {}),
             "phase_ms_a_batch": {p: round(v / max(run.n_batches(), 1), 4)
                                  for p, v in sorted(w.log.span_ms.items())
                                  if p not in ("queue", "profile")}}
@@ -459,16 +546,27 @@ def jax_modules() -> list[str]:
     return sorted(m for m in list(sys.modules) if m.split(".")[0] in JAX_NAMES)
 
 
-def device_info(dev, run: Run, traced: bool) -> dict:
+def device_info(run: Run, traced: bool, fleet: bool) -> dict:
+    """The result line's ``device``: the fullest card's peak; with a fleet
+    also ``per_card``, each replica's device with its peak (and, traced, its
+    busy seconds)."""
+    dev = run.devices[0]
     if dev.type == "cuda":
         out = {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
-               "count": 1, "memory_peak_bytes": run.memory_peak_bytes}
+               "count": len(run.devices), "memory_peak_bytes": run.memory_peak_bytes}
     else:
-        out = {"platform": "cpu", "kind": "host", "count": 1,
+        out = {"platform": "cpu", "kind": "host", "count": len(run.devices),
                "memory_peak_bytes": run.memory_peak_bytes}
     if traced:
         out["busy_s"] = run.trace["busy_s"]
         out["window_s"] = run.trace["window_s"]
+    if fleet:
+        out["per_card"] = [{"device": str(d), "memory_peak_bytes": peak}
+                           for d, peak in zip(run.devices, run.card_peak_bytes)]
+        if traced:
+            for card, d in zip(out["per_card"], run.devices):
+                card["busy_s"] = run.trace["per_card"].get(d.index, 0.0) \
+                    if d.type == "cuda" else 0.0
     return out
 
 
@@ -483,14 +581,19 @@ def execute(cell_name: str, seed: int, seconds: float, traced: bool, t_process: 
     mix = load_traffic(cell["traffic"], root)
     wanted = metrics_for(manifest, cell_name, traced)
     readers = {m["name"]: load_reader(m["name"], root) for m in wanted}
+    n_replicas = placement_replicas(config)
+    if n_replicas is not None and n_replicas != int(cell["chips"]):
+        raise BenchError(f"configuration {entry['name']!r} places {n_replicas} replica(s), "
+                         f"one a card, but cell {cell_name!r} has {cell['chips']} chip(s)")
     if device is None:
         if not torch.cuda.is_available() or torch.cuda.device_count() < int(cell["chips"]):
             err(f"perfbench: cell {cell_name!r} needs {cell['chips']} CUDA device(s); "
                 f"this machine has {torch.cuda.device_count() if torch.cuda.is_available() else 0}")
             return 3
-        device = "cuda:0"
-    dev = torch.device(device)
-    run = run_cell(cell, config, mix, seed, seconds, traced, dev, t_process, log=out, root=root)
+        device = [f"cuda:{i}" for i in range(n_replicas)] if n_replicas else "cuda:0"
+    devices = as_devices(device)
+    run = run_cell(cell, config, mix, seed, seconds, traced, devices, t_process, log=out,
+                   root=root)
     metrics = {}
     for m in wanted:
         v = readers[m["name"]](run)
@@ -502,10 +605,10 @@ def execute(cell_name: str, seed: int, seconds: float, traced: bool, t_process: 
         run.free_program()
         err(f"perfbench: JAX or the JAX package is loaded: {found}")
         return 4
-    checks = check_numbers(run, config, seed, dev, out, root)
+    checks = check_numbers(run, config, seed, devices[0], out, root)
     result = {"correct": passed(checks), "attempted": run.window.log.n,
               "failed": int((~run.window.log.answered).sum()),
-              "metrics": metrics, "device": device_info(dev, run, traced)}
+              "metrics": metrics, "device": device_info(run, traced, n_replicas is not None)}
     if traced:
         result["breakdown"] = {"device_ops": run.trace["device_ops"],
                                "idle_gaps": run.trace["idle_gaps"]}
